@@ -9,20 +9,32 @@ Phases (each ends with ``torch.cuda.synchronize()``; any failure exits
 non-zero):
 
 1. device and build — the card's name and power limit, the torch and CUDA
-   versions, and the build of every ``src/repro_torch/kernels/csrc/*.cu``;
-2. each CUDA scatter kernel against its plain PyTorch version on the card,
-   at the Fig. 6 layer shapes (8 slots), under every dtype pairing, bitwise
-   (``torch.equal``), with kernel and plain times, and the time of
-   PyTorch's library route to the same slab (checked against the kernel
-   to float32 rounding);
-3. the trained tiny checkpoint served through the port's engine
-   (per-step, both dtype policies) against ``tests/golden/
+   versions, and the build of every ``src/repro_torch/kernels/csrc/*.cu``
+   (one ``nvcc`` per source, all started together);
+2. each CUDA kernel against its plain PyTorch version on the card, bitwise
+   (``torch.equal``), with kernel and plain times and the least time the
+   card could take (``bound_ms``):
+   a. the three per-step scatters at the Fig. 6 layer shapes (8 slots),
+      under every dtype pairing, beside PyTorch's library route to the
+      same slab (checked against the kernel to float32 rounding);
+   b. the three fused window kernels on the inputs the main path gives
+      them in a real window (8 slots, T = 4, after three served windows of
+      the 1.2% cohort), under both window pairings, with an all-ones
+      bitmap and with the sparse bitmap ``window_tile_maps`` gives; beside
+      PyTorch's route (the library scatter per timestep plus the LIF as
+      torch ops, T times) and the per-step CUDA path for the same window;
+3. the trained tiny checkpoint served through the port's engine under
+   ``ExecutionPolicy()`` (fused-window, tile sparsity on), tile sparsity
+   off, and per-step, both dtype policies, against ``tests/golden/
    tiny_gesture_trained_serve.npz``, key for key;
 4. the main path: the full-width Fig. 6 network (``dvs_gesture_net()``,
-   128x128x2, T = 100, seeded random weights quantised to int4) serving two
-   cohorts of 8 synthetic DVS recordings (about 1.2% and 4.9% input
-   activity) on 8 slots under both dtype policies, which must agree
-   bitwise; all three kernels must have launched; a T = 8 cut of two
+   128x128x2, T = 100, seeded random weights quantised to int4) serving
+   two cohorts of 8 synthetic DVS recordings (about 1.2% and 4.9% input
+   activity) on 8 slots, under the default fused-window lowering and under
+   per-step, both dtype policies; every request must agree bitwise across
+   lowerings and policies; each lowering's kernels must have launched
+   (launch counts set to 0 just before each lowering's run and read just
+   after); one cohort of each lowering is traced; a T = 8 cut of two
    requests is also served by the plain CPU path and must agree bitwise.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
@@ -50,15 +62,27 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 LIB_RTOL, LIB_ATOL = 1e-4, 1e-3   # library yardstick vs kernel (f32 order)
 COHORTS = (("1.2%", 450e3), ("4.9%", 3.4e6))   # (target activity, rate_hz)
+# the layer-0 cohort whose windows feed phase 2b, and how many windows
+# it serves first (so the membranes are those of a running request)
+WINDOW_COHORT, WARM_WINDOWS = 0, 3
+# operations per site and alive timestep of a window's sweeps: leak
+# (subtract, max), clip (min, max), fire (compare), reset (select)
+SWEEP_OPS = 6
 REPLACES = {
     "event_conv_batched": "src/repro/kernels/event_conv/kernel.py:114",
     "event_pool_batched": "src/repro/kernels/event_pool/kernel.py:102",
     "event_fc_batched": "src/repro/kernels/event_fc/kernel.py:95",
+    "event_conv_window": "src/repro/kernels/event_conv/kernel.py:272",
+    "event_pool_window": "src/repro/kernels/event_pool/kernel.py:233",
+    "event_fc_window": "src/repro/kernels/event_fc/kernel.py:197",
 }
 SOURCES = {
     "event_conv_batched": "src/repro_torch/kernels/csrc/event_conv.cu",
     "event_pool_batched": "src/repro_torch/kernels/csrc/event_pool.cu",
     "event_fc_batched": "src/repro_torch/kernels/csrc/event_fc.cu",
+    "event_conv_window": "src/repro_torch/kernels/csrc/event_conv_window.cu",
+    "event_pool_window": "src/repro_torch/kernels/csrc/event_pool_window.cu",
+    "event_fc_window": "src/repro_torch/kernels/csrc/event_fc_window.cu",
 }
 
 
@@ -152,9 +176,10 @@ def _layer_inputs(op, rng, pairing: str, dev):
 
 def _bound(op, v, w, xyc, gate, out_dtype):
     """Least time for one launch's work: bytes (each input read once, each
-    output written once; fc reads only the rows its gated events name)
-    over the memory rate, or operations (one multiply and one add per
-    neuron update of a gated event) over the float32 rate — the larger."""
+    output written once; every gate, but the coordinates and, for fc, the
+    weight rows of gated events only) over the memory rate, or operations
+    (one multiply and one add per neuron update of a gated event) over the
+    float32 rate — the larger."""
     import torch
     spec = op.spec
     active = gate != 0
@@ -169,41 +194,42 @@ def _bound(op, v, w, xyc, gate, out_dtype):
         w_bytes = w.numel() * w.element_size()
     out_bytes = v.numel() * torch.empty((), dtype=out_dtype).element_size()
     nbytes = (v.numel() * v.element_size() + out_bytes + w_bytes
-              + xyc.numel() * 4 + gate.numel() * gate.element_size())
+              + n_active * 3 * 4 + gate.numel() * gate.element_size())
     ops = 2 * n_active * spec.updates_per_event()
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _library_call(op, v, w, xyc, gate):
-    """PyTorch's own route to the same scatter (f32 only), timed whole: the
-    events are summed into a dense frame with ``index_add_`` and one library
-    call applies the weights — a transposed convolution whose output is the
-    (Hp, Wp) slab, added to ``v``, for conv; ``index_add`` into ``v`` for
-    pool; one ``addmm`` onto ``v`` for fc.  Returns the slab the kernel
-    returns, (N, Hp, Wp, Co)."""
+def _library_call(op, w, xyc, gate):
+    """PyTorch's own route to the same scatter (f32 only), as a function of
+    the slab ``v``, timed whole: the events are summed into a dense frame
+    with ``index_add_`` and one library call applies the weights — a
+    transposed convolution whose output is the (Hp, Wp) slab, added to
+    ``v``, for conv; ``index_add`` into ``v`` for pool; one ``addmm`` onto
+    ``v`` for fc.  Returns the slab the kernel returns, (N, Hp, Wp, Co)."""
     import torch
     import torch.nn.functional as F
     spec = op.spec
-    N = v.shape[0]
+    N = xyc.shape[0]
     H, W, C = spec.in_shape
 
     def coords():
         x, y, c = (xyc[..., k].long() for k in range(3))
-        return torch.arange(N, device=v.device)[:, None].expand_as(x), x, y, c
+        return torch.arange(N, device=xyc.device)[:, None].expand_as(x), \
+            x, y, c
 
     def frame(shape, flat):
         # (N, *shape) zeros with each event's gate added at its flat site
         size = shape[0] * shape[1] * shape[2]
-        return torch.zeros(N * size, device=v.device).index_add_(
+        return torch.zeros(N * size, device=xyc.device).index_add_(
             0, flat.reshape(-1), gate.reshape(-1)).reshape(N, *shape)
 
     if spec.kind == "conv":
         K = w.shape[0]
-        Hf, Wf = v.shape[1] - K + 1, v.shape[2] - K + 1
 
-        def conv():
+        def conv(v):
+            Hf, Wf = v.shape[1] - K + 1, v.shape[2] - K + 1
             # events are in halo coordinates: a (Hp-K+1, Wp-K+1) frame
             # transposed-convolved by K gives the (Hp, Wp) slab
             nid, x, y, c = coords()
@@ -215,7 +241,7 @@ def _library_call(op, v, w, xyc, gate):
         Ho, Wo, Co = spec.out_shape
         s = spec.stride
 
-        def pool():
+        def pool(v):
             # the Fig. 6 pools tile their input exactly: no VALID drops
             nid, x, y, c = coords()
             site = ((nid * Ho + x // s) * Wo + y // s) * Co + c
@@ -224,7 +250,7 @@ def _library_call(op, v, w, xyc, gate):
                                            ).reshape(v.shape)
         return pool
 
-    def fc():
+    def fc(v):
         nid, x, y, c = coords()
         A = frame((1, 1, w.shape[0]), nid * w.shape[0] + (x * W + y) * C + c)
         return torch.addmm(v.reshape(N, -1), A.reshape(N, -1),
@@ -232,8 +258,9 @@ def _library_call(op, v, w, xyc, gate):
     return fc
 
 
-def phase_kernels(program, dev) -> dict:
-    """Every kernel against its plain version, every pairing, bitwise."""
+def phase_kernels(program, dev) -> list:
+    """Every per-step kernel against its plain version, every pairing,
+    bitwise."""
     import numpy as np
     import torch
     from repro_torch.kernels.event_conv.ops import event_conv_batched
@@ -275,7 +302,7 @@ def phase_kernels(program, dev) -> dict:
             bound_ms, bound_by = _bound(op, v, w, xyc, gate, out_dtype)
             lib_ms = lib_err = None
             if pairing == "f32":
-                lib = _library_call(op, v, w, xyc, gate)
+                lib = partial(_library_call(op, w, xyc, gate), v)
                 lib_out = lib()
                 lib_err = (lib_out.double() - got.double()).abs().max().item()
                 # the library sums in another order (atomics, GEMM tiles):
@@ -305,18 +332,219 @@ def phase_kernels(program, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: the window kernels on a real window of the main path
+# ---------------------------------------------------------------------------
+
+def _capture_window(eng):
+    """Serve the engine's next window and return each layer's fused launch
+    on it (``layer_program.LayerWindow``): the arguments the engine gave
+    ``window_step`` are recorded and run once more through the lowering's
+    own layer loop, ``layer_program.fused_window_layers``."""
+    import torch
+    from repro_torch.core import layer_program as lp
+    from repro_torch.serve import event_engine
+    seen = []
+
+    def record(params, states, class_counts, *window, program):
+        seen.append((params, tuple(v.clone() for v in states),
+                     tuple(t.clone() for t in window), program))
+        return lp.window_step(params, states, class_counts, *window,
+                              program=program)
+    event_engine.window_step = record
+    try:
+        eng.step()
+    finally:
+        event_engine.window_step = lp.window_step
+    if len(seen) != 1:
+        raise AssertionError(f"the window made {len(seen)} window_step calls")
+    params, states, window, program = seen[0]
+    return list(lp.fused_window_layers(params, states, *window,
+                                       program=program))
+
+
+def _window_bound(op, v, w, xyc, gate, alive, tiles, acc_dtype):
+    """Least time for one window launch: bytes over the memory rate, or
+    operations over the float32 rate — the larger.  The bytes: the slab in
+    and out once, every gate, the liveness and the bitmap, T spike frames
+    written, and, of the schedule, only the coordinates of the gated
+    events on alive timesteps (they come first in each bucket; the padding
+    behind them is never needed), the weights too (fc: only the rows those
+    events name).  The operations: a multiply and an add per neuron update
+    of such an event, plus ``SWEEP_OPS`` per interior site of a hot tile
+    and alive timestep."""
+    import torch
+    from repro_torch.kernels.window_common import tile_grid, tiles_to_sites
+    spec = op.spec
+    Ho, Wo, C = spec.out_shape
+    live = alive > 0                                          # (N, T)
+    active = (gate != 0) & live[:, :, None]
+    n_active = int(active.sum())
+    if tiles is None:
+        hot = torch.full((v.shape[0],), Ho * Wo, device=v.device)
+    else:
+        grid = tile_grid(Ho, Wo)
+        hot = tiles_to_sites(tiles.float(), grid, (Ho, Wo)).sum(dim=(1, 2))
+    sweep_sites = int((hot * live.sum(dim=1)).sum()) * C
+    if spec.kind == "fc":
+        Hi, Wi, Ci = spec.in_shape
+        rows = (xyc[..., 0].long() * Wi + xyc[..., 1].long()) * Ci \
+            + xyc[..., 2].long()
+        w_bytes = int(torch.unique(rows[active]).numel()) * w.shape[1] \
+            * w.element_size()
+    else:
+        w_bytes = w.numel() * w.element_size()
+    acc_size = torch.empty((), dtype=acc_dtype).element_size()
+    N, T = alive.shape
+    nbytes = (2 * v.numel() * v.element_size() + w_bytes
+              + n_active * 3 * 4 + gate.numel() * acc_size
+              + alive.numel() * 4
+              + (0 if tiles is None else tiles.numel() * 4)
+              + N * T * Ho * Wo * C * acc_size)
+    ops = 2 * n_active * spec.updates_per_event() + SWEEP_OPS * sweep_sites
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_window_kernels(spec, qn, dev) -> list:
+    """Every window kernel against its plain version on a real window of
+    the main path, both pairings, all-ones and sparse bitmaps, bitwise."""
+    import torch
+    from repro_torch.core import layer_program as lp
+    from repro_torch.core.policies import ExecutionPolicy
+    from repro_torch.kernels.event_conv import (event_conv_window,
+                                                event_conv_window_ref)
+    from repro_torch.kernels.event_fc import (event_fc_window,
+                                              event_fc_window_ref)
+    from repro_torch.kernels.event_pool import (event_pool_window,
+                                                event_pool_window_ref)
+    from repro_torch.kernels.window_common import (fused_window_ref,
+                                                   window_acc_dtype)
+    from repro_torch.serve import EventServeEngine
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fns = {"conv": (event_conv_window, event_conv_window_ref),
+           "pool": (event_pool_window, event_pool_window_ref),
+           "fc": (event_fc_window, event_fc_window_ref)}
+    rows = []
+    for dp, pairing in (("f32-carrier", "f32"), ("int8-native", "native")):
+        eng = EventServeEngine(qn.spec, qn.params_for(dp), n_slots=N_SLOTS,
+                               window=WINDOW, device=dev,
+                               policy=ExecutionPolicy(dtype_policy=dp))
+        for r in _cohort(spec, COHORTS[WINDOW_COHORT][1], 100, N_SLOTS,
+                         spec.n_timesteps):
+            if not eng.try_admit(r):
+                raise AssertionError("the cohort must fill the slots")
+        for _ in range(WARM_WINDOWS):
+            eng.step()
+        for lw, p in zip(_capture_window(eng), eng.params):
+            op, vp, xyc, gate, alive, tiles = lw[:6]
+            spec_l = op.spec
+            kind = spec_l.kind
+            name = f"event_{kind}_window"
+            native = pairing == "native"
+            acc = window_acc_dtype(vp.dtype, native)
+            x_k = xyc
+            kw = {"lif": op.lif, "native": native}
+            if kind == "conv":
+                x_k = (xyc + torch.tensor([spec_l.padding, spec_l.padding, 0],
+                                          dtype=torch.int32, device=dev)
+                       ).contiguous()
+                kw["halo"] = op.halo
+            elif kind == "pool":
+                kw["stride"] = spec_l.stride
+            else:
+                kw["in_shape"] = spec_l.in_shape
+            gate_k = gate.to(acc)
+            bitmaps = ({"none": None} if kind == "fc" else
+                       {"ones": torch.ones_like(tiles), "sparse": tiles})
+            for bm, t_bm in bitmaps.items():
+                kwb = dict(kw) if kind == "fc" else dict(kw, tiles=t_bm)
+                args = (vp, p.w, x_k, gate_k, alive)
+                kern = partial(fns[kind][0], *args, **kwb)
+                plain = partial(fns[kind][1], *args, **kwb)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                for g, x in zip(got, want):
+                    if g.dtype != x.dtype or not torch.equal(g, x):
+                        diff = (g.double() - x.double()).abs().max().item()
+                        raise AssertionError(
+                            f"{name} layer {op.index} {pairing} {bm}: kernel"
+                            f" != plain (max |diff| {diff})")
+                bound_ms, bound_by = _window_bound(op, vp, p.w, xyc, gate_k,
+                                                   alive, t_bm, acc)
+                row = {"kernel": name, "layer": op.index,
+                       "pairing": pairing, "bitmap": bm,
+                       "N": vp.shape[0], "T": xyc.shape[1],
+                       "slab": list(vp.shape[1:]), "E": int(xyc.shape[2]),
+                       "gated_events": int((gate != 0).sum()),
+                       "hot_tiles": None if t_bm is None else int(t_bm.sum()),
+                       "tiles": None if t_bm is None else t_bm.numel(),
+                       "ms": cuda_ms(kern, 20),
+                       "plain_ms": cuda_ms(plain, 1, 1),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": 0.0, "library_ms": None,
+                       "per_step_ms": None}
+                if pairing == "f32" and bm != "ones":
+                    # PyTorch's route: the library scatter per timestep and
+                    # the LIF as torch ops (dense: the library has no
+                    # bitmap); equal to the kernel up to float32 rounding
+                    def lib_scatter(a, x_t, g_t, op=op, w=p.w):
+                        return _library_call(op, w, x_t, g_t)(a)
+                    lib = partial(fused_window_ref, vp, x_k, gate_k, alive,
+                                  lib_scatter, lif=op.lif, halo=op.halo,
+                                  native=False)
+                    for g, x in zip(got, lib()):
+                        if not torch.allclose(g, x, rtol=LIB_RTOL,
+                                              atol=LIB_ATOL):
+                            raise AssertionError(
+                                f"{name} layer {op.index}: the library "
+                                f"route computes another function")
+                    row["library_ms"] = cuda_ms(lib, 5)
+
+                    # the per-step CUDA path for the same window
+
+                    def per_step(op=op, p=p, vp=vp, xyc=xyc, gate=gate,
+                                 alive=alive):
+                        v = vp
+                        for t in range(xyc.shape[1]):
+                            v, _ = lp.layer_timestep(
+                                op, p, v, xyc[:, t].contiguous(),
+                                gate[:, t].contiguous(), alive[:, t])
+                        return v
+                    if not torch.equal(per_step(), got[0]):
+                        raise AssertionError(f"{name} layer {op.index}: "
+                                             f"per-step != fused")
+                    row["per_step_ms"] = cuda_ms(per_step, 5)
+                rows.append(row)
+                lib_txt = ("" if row["library_ms"] is None else
+                           f"  library {row['library_ms']:.4f} ms  per-step "
+                           f"{row['per_step_ms']:.4f} ms")
+                tiles_txt = ("" if t_bm is None else
+                             f" hot {row['hot_tiles']}/{row['tiles']}")
+                log(f"  {name:18s} layer {op.index} {pairing:6s} {bm:6s}"
+                    f"{tiles_txt} slab {tuple(vp.shape)} T={row['T']} "
+                    f"E={row['E']:5d} "
+                    f"gated={row['gated_events']:6d}  kernel "
+                    f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms"
+                    f"{lib_txt}  bound {bound_ms:.5f} ms ({bound_by})  "
+                    f"equal")
+    torch.cuda.synchronize()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: serving through the engine
 # ---------------------------------------------------------------------------
 
-def serve(spec, qn, reqs, dtype_policy, n_slots, dev, window_ms=None):
-    """Serve ``reqs`` on a fresh engine; return (requests, engine, wall s)."""
+def serve(qn, reqs, policy, n_slots, dev, window_ms=None):
+    """Serve ``reqs`` on a fresh engine under ``policy`` (an
+    ``ExecutionPolicy``); return (requests, engine, wall s)."""
     import torch
-    from repro_torch.core.policies import ExecutionPolicy
     from repro_torch.serve import EventServeEngine
-    eng = EventServeEngine(qn.spec, qn.params_for(dtype_policy),
+    eng = EventServeEngine(qn.spec, qn.params_for(policy.dtype_policy),
                            n_slots=n_slots, window=WINDOW, device=dev,
-                           policy=ExecutionPolicy(dtype_policy=dtype_policy,
-                                                  fusion_policy="per-step"))
+                           policy=policy)
     pending = list(reqs)
     for r in pending:
         eng.validate_request(r)
@@ -363,6 +591,15 @@ def assert_same(a: dict, b: dict, what: str) -> None:
             raise AssertionError(f"{what}: {k} differs")
 
 
+def _policies(dp: str):
+    """The lowerings every serving phase runs: the default fused-window
+    (the main path), fused-window without tile sparsity, and per-step."""
+    from repro_torch.core.policies import ExecutionPolicy
+    return (ExecutionPolicy(dtype_policy=dp),
+            ExecutionPolicy(dtype_policy=dp, tile_sparsity=False),
+            ExecutionPolicy(dtype_policy=dp, fusion_policy="per-step"))
+
+
 def phase_golden(dev) -> None:
     """The trained checkpoint through the engine equals the golden npz."""
     import numpy as np
@@ -379,17 +616,19 @@ def phase_golden(dev) -> None:
     qn = quantize_net(params, spec, per_channel=False)
     gold = np.load(GOLDEN)
     for dp in ("f32-carrier", "int8-native"):
-        reqs = segment_recording(load_recording(sample_recording_path()),
-                                 qn.spec.in_shape, qn.spec.n_timesteps,
-                                 WINDOW_US)
-        reqs, _, wall = serve(spec, qn, reqs, dp, 2, dev)
-        res = results(reqs)
-        for k in gold.files:
-            if not np.array_equal(res[k], gold[k]):
-                raise AssertionError(f"trained golden {dp}: {k} differs:\n"
-                                     f"{res[k]}\nvs\n{gold[k]}")
-        log(f"  {dp}: {len(reqs)} requests equal the golden "
-            f"({', '.join(gold.files)}), {wall:.3f} s")
+        for pol in _policies(dp):
+            reqs = segment_recording(load_recording(sample_recording_path()),
+                                     qn.spec.in_shape, qn.spec.n_timesteps,
+                                     WINDOW_US)
+            reqs, _, wall = serve(qn, reqs, pol, 2, dev)
+            res = results(reqs)
+            for k in gold.files:
+                if not np.array_equal(res[k], gold[k]):
+                    raise AssertionError(
+                        f"trained golden {pol}: {k} differs:\n{res[k]}\n"
+                        f"vs\n{gold[k]}")
+            log(f"  {pol}: {len(reqs)} requests equal the golden "
+                f"({', '.join(gold.files)}), {wall:.3f} s")
     torch.cuda.synchronize()
 
 
@@ -407,67 +646,76 @@ def _cohort(spec, rate_hz: float, seed0: int, n: int, T: int):
     return reqs
 
 
-def phase_full_width(dev, smi: str) -> dict:
-    """The main path: full-width Fig. 6 serving under both policies."""
+def phase_full_width(spec, qn, dev, smi: str) -> dict:
+    """The main path: full-width Fig. 6 serving, fused-window (the default)
+    and per-step, both dtype policies, every request bitwise equal."""
     import numpy as np
     import torch
+    from repro_torch.core.policies import ExecutionPolicy
     from repro_torch.core.quant import quantize_net
     from repro_torch.core.sne_net import dvs_gesture_net, init_snn
     from repro_torch.kernels import LAUNCHES, reset_launch_counts
-    spec = dvs_gesture_net()
     T = spec.n_timesteps
-    params = init_snn(np.random.default_rng(0), spec, device=dev)
-    qn = quantize_net(params, spec)
     H, W, C = spec.in_shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launch_counts()
-    per_policy = {}
-    report = []
-    for dp in ("f32-carrier", "int8-native"):
-        per_cohort = []
-        for ci, (label, rate) in enumerate(COHORTS):
-            reqs = _cohort(spec, rate, 100 * ci, N_SLOTS, T)
-            before = dict(LAUNCHES)
-            win_ms = []
-            reqs, eng, wall = serve(spec, qn, reqs, dp, N_SLOTS, dev, win_ms)
-            res = results(reqs)
-            per_cohort.append(res)
-            n_in = sum(float(r.telemetry.per_layer_events[0]) for r in reqs)
-            act = n_in / (len(reqs) * T * H * W * C)
-            launches = sum(LAUNCHES[k] - before[k] for k in LAUNCHES)
-            row = {"policy": dp, "cohort": label, "rate_hz": rate,
-                   "requests": len(reqs), "input_activity": act,
-                   "wall_s": wall, "requests_per_s": len(reqs) / wall,
-                   "input_events_per_s": n_in / wall,
-                   "windows": len(win_ms),
-                   "p50_window_ms": float(np.percentile(win_ms, 50)),
-                   "kernel_launches_per_window": launches / len(win_ms),
-                   "predictions": res["predictions"].tolist()}
-            report.append(row)
-            log(f"  {dp} cohort {label} ({rate:.0f} Hz): activity "
-                f"{act:.4%}, {row['requests_per_s']:.3f} req/s, "
-                f"{row['input_events_per_s']:.0f} input events/s, p50 "
-                f"window {row['p50_window_ms']:.3f} ms, "
-                f"{row['kernel_launches_per_window']:.2f} launches/window "
-                f"[{smi}]")
-            counts = res["class_counts"]
-            if counts.shape != (len(reqs), spec.n_classes) or \
-                    not np.isfinite(counts).all():
-                raise AssertionError(f"bad class counts {counts.shape}")
-        per_policy[dp] = per_cohort
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    outputs, report, launches = {}, [], {}
+    for fusion in ("fused-window", "per-step"):
+        reset_launch_counts()      # each lowering's run is read on its own
+        for dp in ("f32-carrier", "int8-native"):
+            for ci, (label, rate) in enumerate(COHORTS):
+                reqs = _cohort(spec, rate, 100 * ci, N_SLOTS, T)
+                before = dict(LAUNCHES)
+                win_ms = []
+                reqs, eng, wall = serve(
+                    qn, reqs, ExecutionPolicy(dtype_policy=dp,
+                                              fusion_policy=fusion),
+                    N_SLOTS, dev, win_ms)
+                res = results(reqs)
+                outputs[(fusion, dp, label)] = res
+                n_in = sum(float(r.telemetry.per_layer_events[0])
+                           for r in reqs)
+                act = n_in / (len(reqs) * T * H * W * C)
+                n_launch = sum(LAUNCHES[k] - before[k] for k in LAUNCHES)
+                row = {"fusion": fusion, "policy": dp, "cohort": label,
+                       "rate_hz": rate, "requests": len(reqs),
+                       "input_activity": act, "wall_s": wall,
+                       "requests_per_s": len(reqs) / wall,
+                       "input_events_per_s": n_in / wall,
+                       "windows": len(win_ms),
+                       "p50_window_ms": float(np.percentile(win_ms, 50)),
+                       "kernel_launches_per_window": n_launch / len(win_ms),
+                       "hot_tiles": eng.stats["hot_tiles"],
+                       "total_tiles": eng.stats["total_tiles"],
+                       "predictions": res["predictions"].tolist()}
+                report.append(row)
+                log(f"  {fusion} {dp} cohort {label} ({rate:.0f} Hz): "
+                    f"activity {act:.4%}, {row['requests_per_s']:.3f} req/s, "
+                    f"{row['input_events_per_s']:.0f} input events/s, p50 "
+                    f"window {row['p50_window_ms']:.3f} ms, "
+                    f"{row['kernel_launches_per_window']:.2f} launches/window,"
+                    f" layer-0 tiles hot {row['hot_tiles']}/"
+                    f"{row['total_tiles']} [{smi}]")
+                counts = res["class_counts"]
+                if counts.shape != (len(reqs), spec.n_classes) or \
+                        not np.isfinite(counts).all():
+                    raise AssertionError(f"bad class counts {counts.shape}")
+        torch.cuda.synchronize()
+        launches[fusion] = dict(LAUNCHES)
+        log(f"  launches on the {fusion} path: {launches[fusion]}")
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"  peak device memory {peak / 2**20:.1f} MiB [{smi}]")
-    for a, b in zip(per_policy["f32-carrier"], per_policy["int8-native"]):
-        assert_same(a, b, "f32-carrier vs int8-native")
-    log("  f32-carrier and int8-native agree bitwise on every request")
-    missing = [k for k, n in launches.items() if n == 0]
+    for key, res in outputs.items():
+        oracle = outputs[("per-step", "f32-carrier", key[2])]
+        assert_same(res, oracle, f"{key} vs per-step f32-carrier")
+    log("  fused-window and per-step, f32-carrier and int8-native agree "
+        "bitwise on every request")
+    missing = [k for k in LAUNCHES
+               if launches["fused-window" if k.endswith("_window")
+                           else "per-step"][k] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
-    log(f"  launches on the main path: {launches}")
     # the same path cut to T = 8, served by the card and by the plain CPU
     # path, must agree bitwise
     short = dvs_gesture_net(n_timesteps=8)
@@ -476,31 +724,37 @@ def phase_full_width(dev, smi: str) -> dict:
     qc = quantize_net(init_snn(np.random.default_rng(0), short,
                                device="cpu"), short)
     for dp in ("f32-carrier", "int8-native"):
-        got = results(serve(short, qs, _cohort(short, 2e6, 7, 2, 8), dp, 2,
-                            dev)[0])
-        want = results(serve(short, qc, _cohort(short, 2e6, 7, 2, 8), dp, 2,
-                             torch.device("cpu"))[0])
-        assert_same(got, want, f"full width T=8 {dp}: card vs plain CPU")
-    log("  full width, T = 8: card equals the plain CPU path, both policies")
+        for fusion in ("fused-window", "per-step"):
+            pol = ExecutionPolicy(dtype_policy=dp, fusion_policy=fusion)
+            got = results(serve(qs, _cohort(short, 2e6, 7, 2, 8), pol, 2,
+                                dev)[0])
+            want = results(serve(qc, _cohort(short, 2e6, 7, 2, 8), pol, 2,
+                                 torch.device("cpu"))[0])
+            assert_same(got, want, f"full width T=8 {pol}: card vs plain CPU")
+    log("  full width, T = 8: card equals the plain CPU path, both "
+        "lowerings, both policies")
     return {"launches": launches, "serving": report,
             "peak_device_memory_bytes": peak,
-            "trace": trace_cohort(spec, qn, dev, smi)}
+            "trace": {fusion: trace_cohort(spec, qn, dev, smi, fusion)
+                      for fusion in ("fused-window", "per-step")}}
 
 
-def trace_cohort(spec, qn, dev, smi: str) -> dict:
-    """Serve the 4.9% cohort once more (f32 carrier) under
+def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
+    """Serve the 4.9% cohort once more (f32 carrier, ``fusion``) under
     ``torch.profiler``: the device-busy share of the traced wall time and
     the device time by kernel name (the trace itself is too large to keep).
     """
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.policies import ExecutionPolicy
     reqs = _cohort(spec, COHORTS[1][1], 100, N_SLOTS, spec.n_timesteps)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve(spec, qn, reqs, "f32-carrier", N_SLOTS, dev)
+        _, _, wall = serve(qn, reqs, ExecutionPolicy(fusion_policy=fusion),
+                           N_SLOTS, dev)
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     out = {"wall_ms": 1e3 * wall, "device_kernel_ms": device_ms,
            "device_busy_share": device_ms / (1e3 * wall) if device_ms
            else None,
@@ -510,12 +764,34 @@ def trace_cohort(spec, qn, dev, smi: str) -> dict:
     share = ("not measured (no device time in the trace)"
              if out["device_busy_share"] is None
              else f"{out['device_busy_share']:.2%}")
-    log(f"  traced cohort: wall {out['wall_ms']:.1f} ms, device kernels "
-        f"{device_ms:.1f} ms, device busy {share} [{smi}]")
+    log(f"  traced {fusion} cohort: wall {out['wall_ms']:.1f} ms, device "
+        f"kernels {device_ms:.1f} ms, device busy {share} [{smi}]")
     for k in out["top_kernels"]:
         log(f"    {k['device_ms']:9.2f} ms  {k['calls']:6d} calls  "
             f"{k['name']}")
     return out
+
+
+def _kernel_entry(name, mine, launches):
+    """One kernel's line of the JSON: the main path's configuration (f32;
+    the window kernels with the sparse bitmap the main path gives them),
+    summed over the layers of its kind."""
+    main = [r for r in mine if r["pairing"] == "f32"
+            and r.get("bitmap", "sparse") in ("sparse", "none")]
+    lib = [r["library_ms"] for r in main]
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": launches[name],
+        "max_abs_err": max(r["max_abs_err"] for r in mine),
+        "ms": sum(r["ms"] for r in main),
+        "plain_ms": sum(r["plain_ms"] for r in main),
+        "bound_ms": sum(r["bound_ms"] for r in main),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main)
+        else "operations",
+        "library_ms": None if None in lib else sum(lib),
+        "layers": [r["layer"] for r in main],
+        "per_shape": mine,
+    }
 
 
 def main() -> int:
@@ -553,38 +829,26 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
     torch.cuda.synchronize()
 
-    log("phase 2: kernels against their plain versions at the Fig. 6 shapes")
     spec = dvs_gesture_net()
-    qspec = quantize_net(init_snn(np.random.default_rng(0), spec,
-                                  device="cpu"), spec).spec
-    program = compile_program(qspec, device=dev)
-    rows = phase_kernels(program, dev)
+    qn = quantize_net(init_snn(np.random.default_rng(0), spec, device=dev),
+                      spec)
+    log("phase 2a: per-step kernels against their plain versions at the "
+        "Fig. 6 shapes")
+    rows = phase_kernels(compile_program(qn.spec, device=dev), dev)
+    log("phase 2b: window kernels against their plain versions on a real "
+        "window of the main path")
+    rows += phase_window_kernels(spec, qn, dev)
 
     log("phase 3: trained checkpoint against the golden")
     phase_golden(dev)
 
     log("phase 4: full-width Fig. 6 serving (the main path)")
-    main_path = phase_full_width(dev, smi)
+    main_path = phase_full_width(spec, qn, dev, smi)
 
-    kernels = []
-    for name in REPLACES:
-        mine = [r for r in rows if r["kernel"] == name]
-        f32 = [r for r in mine if r["pairing"] == "f32"]
-        # per-timestep cost on the path: one launch per layer of this kind
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name],
-            "launches": main_path["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in f32),
-            "plain_ms": sum(r["plain_ms"] for r in f32),
-            "bound_ms": sum(r["bound_ms"] for r in f32),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in f32)
-            else "operations",
-            "library_ms": sum(r["library_ms"] for r in f32),
-            "layers": [r["layer"] for r in f32],
-            "per_shape": mine,
-        })
+    launches = {k: main_path["launches"]["fused-window" if k.endswith(
+        "_window") else "per-step"][k] for k in REPLACES}
+    kernels = [_kernel_entry(name, [r for r in rows if r["kernel"] == name],
+                             launches) for name in REPLACES]
     summary = {"serving": main_path["serving"],
                "peak_device_memory_bytes":
                    main_path["peak_device_memory_bytes"],
@@ -593,7 +857,7 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, **summary}, f, indent=1)
-    log(json.dumps(summary))
+    log(json.dumps({k: v for k, v in summary.items() if k != "trace"}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

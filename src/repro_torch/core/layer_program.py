@@ -1,19 +1,26 @@
-"""The layer-program executor: one event-domain network step, per-step.
+"""The layer-program executor: one event-domain network step.
 
-Counterpart of ``repro.core.layer_program`` for the per-step lowering.
-:func:`compile_program` lowers an ``SNNSpec`` into a :class:`LayerProgram`
-(a typed sequence of :class:`LayerOp`), and :func:`window_step` advances
-every serving slot through one window of timesteps: per timestep, layer by
-layer, ``leak -> scatter -> clip -> fire -> reset``, where each layer's
-scatter is one slot-batched CUDA launch (`kernels/event_conv`,
-`kernels/event_pool`, `kernels/event_fc`) and the FIRE frame is routed to
-the next layer's events on the device (:func:`frame_to_events`).
+Counterpart of ``repro.core.layer_program`` for the per-step and the
+fused-window lowerings.  :func:`compile_program` lowers an ``SNNSpec``
+into a :class:`LayerProgram` (a typed sequence of :class:`LayerOp`), and
+:func:`window_step` advances every serving slot through one window of
+timesteps.  The program's fusion policy picks the lowering:
+
+* ``"per-step"`` — per timestep, layer by layer, ``leak -> scatter ->
+  clip -> fire -> reset``, each layer's scatter one slot-batched CUDA
+  launch (`kernels/event_conv`, `kernels/event_pool`, `kernels/event_fc`;
+  L×T launches per window).  The bitwise oracle of every other lowering.
+* ``"fused-window"`` (the policy default) — layer by layer, each layer's
+  whole window in ONE fused launch (the ``*_window`` kernels, tile
+  sparsity included; L launches per window), with every timestep's FIRE
+  frames routed at once.  Bitwise the per-step results.
+
+``"fused-network"`` is not ported yet and is refused at compile time.
 
 Two dtype policies, as in the reference: ``"f32-carrier"`` (integers in
 float32; also runs float nets) and ``"int8-native"`` (int8 codes and
 resident slabs, int32 accumulation) — bitwise the same results on an
-integer-domain net.  The fused lowerings (``"fused-window"``,
-``"fused-network"``) are not ported yet and are refused at compile time.
+integer-domain net.
 
 The step runs eagerly (the reference jits it); it builds new state
 tensors and never updates its inputs in place.
@@ -22,7 +29,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import TYPE_CHECKING, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Iterator, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -36,16 +44,21 @@ from repro_torch.core.policies import (DTYPE_POLICIES, F32_CARRIER,
                                        ExecutionPolicy)
 from repro_torch.core.quant import INT8_MAX, INT8_MIN
 from repro_torch.device import resolve_device
-from repro_torch.kernels.event_conv.ops import event_conv_batched
-from repro_torch.kernels.event_fc.ops import event_fc_batched
-from repro_torch.kernels.event_pool.ops import event_pool_batched
+from repro_torch.kernels.event_conv.ops import (event_conv_batched,
+                                                event_conv_window)
+from repro_torch.kernels.event_fc.ops import event_fc_batched, event_fc_window
+from repro_torch.kernels.event_pool.ops import (event_pool_batched,
+                                                event_pool_window)
+from repro_torch.kernels.window_common import (crop_interior, dilate_conv,
+                                               dilate_pool, seed_site_map,
+                                               sites_to_tiles, tile_grid,
+                                               tiles_to_sites, write_cropped)
 
 if TYPE_CHECKING:  # pragma: no cover - annotation only
     from repro_torch.core.sne_net import SNNSpec
 
-# the lowerings still to port, and the ROADMAP item that ports each
+# the lowering still to port, and the ROADMAP item that ports it
 _NOT_PORTED = {
-    FUSED_WINDOW: "ROADMAP Queue A item 4 (the fused-window lowering)",
     FUSED_NETWORK: "ROADMAP Queue A item 5 (the fused-network lowering)",
 }
 
@@ -106,6 +119,7 @@ class LayerProgram:
     ops: Tuple[LayerOp, ...]
     dtype_policy: str = F32_CARRIER
     fusion_policy: str = PER_STEP
+    tile_sparsity: bool = True
     device: str = "cuda"
 
     @property
@@ -168,10 +182,12 @@ def compile_program(spec: "SNNSpec",
                     device=None) -> LayerProgram:
     """Compile ``SNNSpec`` into the op sequence :func:`window_step` runs.
 
-    ``policy`` defaults to the per-step lowering on the float32 carrier.
-    A fused fusion policy raises ``NotImplementedError`` (not ported yet).
-    ``device`` (default: CUDA) is where the program serves; asking for
-    CUDA without a card raises.  Equal calls share one cached program.
+    ``policy`` defaults to the per-step lowering on the float32 carrier
+    (the reference's default here); its dtype policy, fusion policy and
+    tile sparsity are compiled in.  ``"fused-network"`` raises
+    ``NotImplementedError`` (not ported yet).  ``device`` (default: CUDA)
+    is where the program serves; asking for CUDA without a card raises.
+    Equal calls share one cached program.
     """
     pol = policy if policy is not None else ExecutionPolicy(
         fusion_policy=PER_STEP)
@@ -185,11 +201,13 @@ def compile_program(spec: "SNNSpec",
             f"use ExecutionPolicy(fusion_policy='per-step')")
     dev = resolve_device(device)
     caps = None if step_capacities is None else tuple(step_capacities)
-    return _compile_cached(spec, caps, pol.dtype_policy, str(dev))
+    return _compile_cached(spec, caps, pol.dtype_policy, pol.fusion_policy,
+                           pol.tile_sparsity, str(dev))
 
 
 @functools.lru_cache(maxsize=64)
 def _compile_cached(spec: "SNNSpec", step_capacities, dtype_policy: str,
+                    fusion_policy: str, tile_sparsity: bool,
                     device: str) -> LayerProgram:
     if step_capacities is not None and len(step_capacities) != len(
             spec.layers):
@@ -205,7 +223,8 @@ def _compile_cached(spec: "SNNSpec", step_capacities, dtype_policy: str,
         ops.append(LayerOp(index=i, spec=l, halo=_halo(l), step_capacity=cap,
                            dtype_policy=dtype_policy))
     return LayerProgram(spec=spec, ops=tuple(ops), dtype_policy=dtype_policy,
-                        fusion_policy=PER_STEP, device=device)
+                        fusion_policy=fusion_policy,
+                        tile_sparsity=tile_sparsity, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -219,22 +238,6 @@ def padded_state(op: LayerOp, n_slots: int, device=None) -> torch.Tensor:
     h = op.halo
     return torch.zeros((n_slots, Ho + 2 * h, Wo + 2 * h, Co),
                        dtype=state_dtype(op), device=device)
-
-
-def interior(vp: torch.Tensor, h: int) -> torch.Tensor:
-    """Crop the halo off ``(..., Hp, Wp, C)`` (a view)."""
-    if h == 0:
-        return vp
-    return vp[..., h:vp.shape[-3] - h, h:vp.shape[-2] - h, :]
-
-
-def write_interior(vp: torch.Tensor, x: torch.Tensor, h: int) -> torch.Tensor:
-    """A new buffer: ``vp`` with its logical interior replaced by ``x``."""
-    if h == 0:
-        return x
-    out = vp.clone()
-    out[..., h:vp.shape[-3] - h, h:vp.shape[-2] - h, :] = x
-    return out
 
 
 def clip_state(v: torch.Tensor, p: LifParams) -> torch.Tensor:
@@ -308,20 +311,21 @@ def layer_timestep(op: LayerOp, params: EConvParams, vp: torch.Tensor,
     if op.dtype_policy == INT8_NATIVE:
         acc = acc_dtype(op)
         v_in_dt = scatter_dtypes(op)[0]
-        v_l = apply_leak(interior(vp, h).to(acc), lp.leak, 1, lp.leak_mode)
-        vp_l = write_interior(vp.to(v_in_dt), v_l.to(v_in_dt), h)
+        v_l = apply_leak(crop_interior(vp, h).to(acc), lp.leak, 1,
+                         lp.leak_mode)
+        vp_l = write_cropped(vp.to(v_in_dt), v_l.to(v_in_dt), h)
         vp_s = scatter_events_batched(op, params, vp_l, xyc, gate)  # int32
-        v = clip_state(interior(vp_s, h), lp)
+        v = clip_state(crop_interior(vp_s, h), lp)
         v, s = fire_and_reset(v, lp)
-        vp_new = write_interior(vp_s, v, h)
+        vp_new = write_cropped(vp_s, v, h)
         vp_new = torch.clamp(vp_new, INT8_MIN, INT8_MAX).to(torch.int8)
     else:
-        vp_l = write_interior(vp, apply_leak(interior(vp, h), lp.leak, 1,
-                                             lp.leak_mode), h)
+        vp_l = write_cropped(vp, apply_leak(crop_interior(vp, h), lp.leak,
+                                            1, lp.leak_mode), h)
         vp_s = scatter_events_batched(op, params, vp_l, xyc, gate)
-        v = clip_state(interior(vp_s, h), lp)
+        v = clip_state(crop_interior(vp_s, h), lp)
         v, s = fire_and_reset(v, lp)
-        vp_new = write_interior(vp_s, v, h)
+        vp_new = write_cropped(vp_s, v, h)
     m = alive_t.reshape(-1, 1, 1, 1) > 0
     s = torch.where(m, s, torch.zeros_like(s))
     return torch.where(m, vp_new, vp), s
@@ -363,7 +367,7 @@ def apply_idle_decay(states, dt: torch.Tensor, *, program: LayerProgram):
         if not supports_idle_skip(op.lif):
             out.append(vp)     # soft reset: idle skip is off, dt is zero
             continue
-        v_in = interior(vp, op.halo)
+        v_in = crop_interior(vp, op.halo)
         if op.dtype_policy == INT8_NATIVE:
             # decay in the wide accumulator; the result is clipped, so the
             # downcast back to int8 is exact
@@ -371,18 +375,164 @@ def apply_idle_decay(states, dt: torch.Tensor, *, program: LayerProgram):
                              dt4).to(torch.int8)
         else:
             dec = idle_decay(v_in, op.lif, dt4.to(v_in.dtype))
-        out.append(write_interior(vp, dec, op.halo))
+        out.append(write_cropped(vp, dec, op.halo))
     return tuple(out)
+
+
+def effective_tile_sparsity(program: LayerProgram) -> bool:
+    """Whether the fused lowering threads tile activity bitmaps: the policy
+    asks for them and every layer is hard-reset (a cold tile settles with
+    one `core.lif.idle_decay`, which soft reset has no closed form for;
+    such programs run dense).  The per-step lowering never consults this."""
+    return (program.tile_sparsity
+            and all(supports_idle_skip(op.lif) for op in program.ops))
+
+
+def window_tile_maps(program: LayerProgram, ev_xyc: torch.Tensor,
+                     ev_gate: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Per-layer (N, nTx, nTy) int32 tile activity bitmaps for one window.
+
+    Seeds a layer-0 site map from the collector's events (``ev_xyc``
+    (T, N, E0, 3), ``ev_gate`` (T, N, E0), layer coordinates), then walks
+    the program: each layer dilates the incoming map through its
+    receptive field (conv: K×K; pool: its stride window; fc: always hot)
+    and coarsens it to its tile grid.  The next layer sees the upsampled
+    *tile* footprint, not the raw site map: every site of a hot tile runs
+    the fire sweep and may spike, so a finer map would undercount.
+    """
+    in_map = seed_site_map(ev_xyc, ev_gate, program.ops[0].spec.in_shape[:2])
+    tiles = []
+    for op in program.ops:
+        spec = op.spec
+        Ho, Wo, _ = spec.out_shape
+        if spec.kind == "conv":
+            out_map = dilate_conv(in_map, spec.kernel, spec.padding)
+        elif spec.kind == "pool":
+            out_map = dilate_pool(in_map, spec.stride, (Ho, Wo))
+        else:
+            out_map = torch.ones((in_map.shape[0], Ho, Wo),
+                                 dtype=torch.float32, device=in_map.device)
+        grid = tile_grid(Ho, Wo)
+        t = sites_to_tiles(out_map, grid)
+        tiles.append(t)
+        in_map = tiles_to_sites(t.to(torch.float32), grid, (Ho, Wo))
+    return tuple(tiles)
+
+
+def layer_window(op: LayerOp, params: EConvParams, vp: torch.Tensor,
+                 xyc: torch.Tensor, gate: torch.Tensor, alive: torch.Tensor,
+                 tiles: Optional[torch.Tensor] = None):
+    """One layer × one whole window for every slot: one fused launch.
+
+    The fused counterpart of T calls of :func:`layer_timestep`, bitwise
+    equal to them (membranes and every timestep's spike frame) under both
+    dtype policies.  Unlike the reference, which takes time-major
+    schedules and transposes them for its kernels, the port passes every
+    schedule slot-major: the kernels and :func:`frame_to_events` both
+    work on it, so no transpose runs between layers.
+
+    Args:
+      vp:    (N, Hp, Wp, C) membrane slab in the op's storage dtype.
+      xyc:   (N, T, E, 3) int32 events in layer coordinates (conv shifts
+             them into halo coordinates here).
+      gate:  (N, T, E) gates.
+      alive: (N, T) 1.0 where the slot has a real timestep.
+      tiles: optional (N, nTx, nTy) tile bitmap (:func:`window_tile_maps`);
+             ignored for fc layers.
+
+    Returns ``(vp_new, spikes (N, T, Ho, Wo, C))``, spikes in the
+    accumulator dtype.
+    """
+    spec = op.spec
+    check_native_weights(op, params)
+    native = op.dtype_policy == INT8_NATIVE
+    w = params.w
+    if spec.kind == "conv":
+        off = torch.tensor([spec.padding, spec.padding, 0], dtype=torch.int32,
+                           device=xyc.device)
+        return event_conv_window(vp, w, (xyc + off).contiguous(), gate, alive,
+                                 lif=op.lif, halo=op.halo, native=native,
+                                 tiles=tiles)
+    if spec.kind == "pool":
+        return event_pool_window(vp, w, xyc, gate, alive, lif=op.lif,
+                                 stride=spec.stride, native=native,
+                                 tiles=tiles)
+    return event_fc_window(vp, w, xyc, gate, alive, lif=op.lif,
+                           in_shape=spec.in_shape, native=native)
+
+
+class LayerWindow(NamedTuple):
+    """One layer's fused launch in a window: what it was given and what it
+    gave (:func:`fused_window_layers`).  Schedules are slot-major."""
+    op: LayerOp
+    vp: torch.Tensor                 # (N, Hp, Wp, C) membrane slab in
+    xyc: torch.Tensor                # (N, T, E, 3) events, layer coordinates
+    gate: torch.Tensor               # (N, T, E)
+    alive: torch.Tensor              # (N, T)
+    tiles: Optional[torch.Tensor]    # (N, nTx, nTy) bitmap, or None
+    vp_new: torch.Tensor             # the slab out
+    spikes: torch.Tensor             # (N, T, Ho, Wo, C)
+    drops: torch.Tensor              # (N,) int32 events dropped routing in
+
+
+def fused_window_layers(params: Sequence[EConvParams], states, ev_xyc,
+                        ev_gate, alive, pre_dt, *,
+                        program: LayerProgram) -> Iterator[LayerWindow]:
+    """The fused-window lowering's layer loop, one :class:`LayerWindow`
+    per layer (arguments as :func:`window_step`'s).
+
+    Layer-major: layer *l* at timestep *t* needs only layer *l-1*'s frame
+    at *t* and its own state, so each layer runs its whole window in one
+    :func:`layer_window` launch, and :func:`frame_to_events` routes all
+    ``N×T`` of its frames in one call (each frame alone, so the events and
+    drops are those of T separate calls).
+    """
+    N, T = ev_xyc.shape[1], ev_xyc.shape[0]
+    states = apply_idle_decay(states, pre_dt, program=program)
+    tiles = (window_tile_maps(program, ev_xyc, ev_gate)
+             if effective_tile_sparsity(program) else None)
+    xyc = ev_xyc.transpose(0, 1).contiguous()          # slot-major
+    gate = ev_gate.transpose(0, 1).contiguous()
+    alive = alive.transpose(0, 1).contiguous()
+    drops = torch.zeros((N,), dtype=torch.int32, device=ev_xyc.device)
+    s = None
+    for op, p, vp in zip(program.ops, params, states):
+        if op.index > 0:
+            xyc, gate, n_drop = frame_to_events(s.reshape(N * T, *s.shape[2:]),
+                                                op.step_capacity)
+            xyc = xyc.reshape(N, T, -1, 3)
+            gate = gate.reshape(N, T, -1)
+            drops = n_drop.reshape(N, T).sum(dim=1, dtype=torch.int32)
+        t_l = None if tiles is None else tiles[op.index]
+        vp_new, s = layer_window(op, p, vp, xyc, gate, alive, tiles=t_l)
+        yield LayerWindow(op, vp, xyc, gate, alive, t_l, vp_new, s, drops)
+
+
+def _window_step_fused(params: Sequence[EConvParams], states, class_counts,
+                       ev_xyc, ev_gate, alive, pre_dt, *,
+                       program: LayerProgram):
+    """The fused-window lowering behind :func:`window_step` (L launches)."""
+    layers = list(fused_window_layers(params, states, ev_xyc, ev_gate, alive,
+                                      pre_dt, program=program))
+    counts = torch.stack([lw.gate.sum(dim=(1, 2)).to(torch.float32)
+                          for lw in layers])
+    drops = torch.stack([lw.drops for lw in layers])
+    # class counts stay float32 under every policy (exact integer sums)
+    class_counts = class_counts + layers[-1].spikes.sum(
+        dim=(1, 2, 3)).to(torch.float32)
+    return tuple(lw.vp_new for lw in layers), class_counts, counts, drops
 
 
 def window_step(params: Sequence[EConvParams], states, class_counts,
                 ev_xyc, ev_gate, alive, pre_dt, *, program: LayerProgram):
-    """Advance every slot through one window of timesteps (per-step).
+    """Advance every slot through one window of timesteps.
 
-    Per timestep the program chain runs layer by layer, each layer one
-    slot-batched scatter launch (L×T launches per window), with
-    :func:`frame_to_events` routing each FIRE frame into the next layer's
-    event bucket on the device.
+    The program's fusion policy picks the lowering: ``"per-step"`` runs
+    the chain per timestep, each layer one slot-batched scatter launch
+    (L×T launches), with :func:`frame_to_events` routing each FIRE frame
+    into the next layer's event bucket on the device; ``"fused-window"``
+    runs each layer's whole window in one launch (:func:`layer_window`,
+    :func:`_window_step_fused`; L launches).  Both give the same bits.
 
     Args:
       states:       per-layer membrane slabs, each (N, Hp, Wp, C).
@@ -395,14 +545,16 @@ def window_step(params: Sequence[EConvParams], states, class_counts,
     Returns new states, class_counts, per-layer per-slot consumed-event
     counts (L, N) float32 and inter-layer overflow drops (L, N) int32.
     """
-    if program.fusion_policy != PER_STEP:
-        raise NotImplementedError(_NOT_PORTED.get(program.fusion_policy,
-                                                  program.fusion_policy))
+    if program.fusion_policy in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[program.fusion_policy])
     if str(class_counts.device) != program.device:
         raise ValueError(f"the program serves on {program.device}, the "
                          f"state lives on {class_counts.device}")
     for op, p in zip(program.ops, params):
         check_native_weights(op, p)
+    if program.fusion_policy == FUSED_WINDOW:
+        return _window_step_fused(params, states, class_counts, ev_xyc,
+                                  ev_gate, alive, pre_dt, program=program)
     L = len(program.ops)
     N = class_counts.shape[0]
     dev = class_counts.device

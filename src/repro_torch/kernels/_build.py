@@ -26,12 +26,21 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of each library's launcher: pointers, then ints, then stream
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the window launchers' LIF plan: threshold, leak, clip; the three modes
+_LIF = [_F] * 3 + [_I] * 3
+# C signature of each library's launcher: pointers, then ints (and the
+# window kernels' LIF plan), then stream
 _SIGNATURES = {
     "event_conv": ("sne_event_conv_batched", [_P] * 5 + [_I] * 9 + [_P]),
     "event_pool": ("sne_event_pool_batched", [_P] * 5 + [_I] * 8 + [_P]),
     "event_fc": ("sne_event_fc_batched", [_P] * 5 + [_I] * 7 + [_P]),
+    "event_conv_window": ("sne_event_conv_window",
+                          [_P] * 8 + [_I] * 15 + _LIF + [_P]),
+    "event_pool_window": ("sne_event_pool_window",
+                          [_P] * 9 + [_I] * 13 + _LIF + [_P]),
+    "event_fc_window": ("sne_event_fc_window",
+                        [_P] * 7 + [_I] * 8 + _LIF + [_P]),
 }
 
 _lock = threading.Lock()

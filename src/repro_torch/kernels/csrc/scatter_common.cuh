@@ -1,4 +1,4 @@
-// Shared pieces of the three slot-batched event scatter kernels.
+// Shared pieces of the event scatter kernels (per-step and window).
 //
 // Arithmetic helpers keep float adds and multiplies as separate, correctly
 // rounded operations (no fused multiply-add), so every membrane sees the
@@ -16,8 +16,10 @@ constexpr int kChunk = 128;
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ int32_t mul_rn(int32_t a, int32_t b) { return a * b; }
 __device__ __forceinline__ int32_t add_rn(int32_t a, int32_t b) { return a + b; }
+__device__ __forceinline__ int32_t sub_rn(int32_t a, int32_t b) { return a - b; }
 
 // Pairing codes, as `kernels/_common.py::PAIRINGS` numbers them:
 //   0: f32 slab, f32 weights, f32 gate   -> f32

@@ -1,8 +1,10 @@
-"""Wrapper of the slot-batched event-conv scatter.
+"""Wrappers of the event-conv kernels: the slot-batched scatter and the
+fused window.
 
-CPU tensors go to the plain PyTorch version (`ref.py`); CUDA tensors
-launch the hand-written kernel ``csrc/event_conv.cu`` on the current
-stream, or raise — there is no fallback from one to the other.
+CPU tensors go to the plain PyTorch versions (`ref.py`); CUDA tensors
+launch the hand-written kernels ``csrc/event_conv.cu`` and
+``csrc/event_conv_window.cu`` on the current stream, or raise — there is
+no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -10,10 +12,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (LAUNCHES, check_batch, check_cuda,
-                                         pairing, raise_on_error)
-from repro_torch.kernels.event_conv.ref import event_conv_batched_ref
+                                         check_tiles, lif_args, on_cpu,
+                                         pairing, raise_on_error,
+                                         window_pairing, window_schedule)
+from repro_torch.kernels.event_conv.ref import (event_conv_batched_ref,
+                                                event_conv_window_ref)
+from repro_torch.kernels.window_common import tile_grid
 
 NAME = "event_conv_batched"
+WINDOW_NAME = "event_conv_window"
 # a block keeps its slab slice, weights and event stage in shared memory
 SMEM_BUDGET = 200 * 1024
 MIN_THREADS = 64
@@ -61,7 +68,7 @@ def event_conv_batched(v: torch.Tensor, weights: torch.Tensor,
     code = pairing(NAME, v, weights, ev_gate, out_dtype)
     if v.shape[0] == 0 or ev_xyc.shape[1] == 0:
         return v.to(out_dtype, copy=True)
-    if all(t.device.type == "cpu" for t in (v, weights, ev_xyc, ev_gate)):
+    if on_cpu(v, weights, ev_xyc, ev_gate):
         return event_conv_batched_ref(v, weights, ev_xyc, ev_gate, out_dtype)
     dev = check_cuda(NAME, v, weights, ev_xyc, ev_gate)
     N, Hp, Wp, Co = v.shape
@@ -78,3 +85,63 @@ def event_conv_batched(v: torch.Tensor, weights: torch.Tensor,
     raise_on_error(NAME, err)
     LAUNCHES[NAME] += 1
     return out
+
+
+def event_conv_window(v: torch.Tensor, weights: torch.Tensor,
+                      ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
+                      alive: torch.Tensor, *, lif, halo: int,
+                      native: bool = False, tiles=None):
+    """Advance N slots through a whole T-timestep conv window in one launch.
+
+    Args:
+      v:       (N, Hp, Wp, Co) halo-padded membranes, storage dtype (f32;
+               int8 on the native path).
+      weights: (K, K, Ci, Co) conv weights, unflipped (f32; int8 codes).
+      ev_xyc:  (N, T, E, 3) int32 window schedule in halo coordinates.
+      ev_gate: (N, T, E) gates (cast to the accumulator dtype).
+      alive:   (N, T) liveness; a frozen timestep holds state, emits 0.
+      lif:     the layer's `LifParams`; halo: its halo width.
+      native:  int8-native policy (int32 accumulator, int8 clamp).
+      tiles:   optional (N, nTx, nTy) interior tile bitmap
+               (`window_common.tile_grid`); hard-reset layers only.
+               None runs every tile.
+
+    A zero-length event axis still runs the window (leak and fire must
+    advance).  Returns ``(v_out, spikes (N, T, Ho, Wo, Co))``, spikes in
+    the accumulator dtype.
+    """
+    acc, ev_xyc, ev_gate, alive = window_schedule(WINDOW_NAME, v, ev_xyc,
+                                                  ev_gate, alive, native)
+    if weights.dim() != 4 or weights.shape[0] != weights.shape[1] \
+            or weights.shape[3] != v.shape[3]:
+        raise ValueError(f"{WINDOW_NAME}: weights {tuple(weights.shape)} do "
+                         f"not match slab {tuple(v.shape)}")
+    N, Hp, Wp, Co = v.shape
+    nTx, nTy, th, tw = tile_grid(Hp - 2 * halo, Wp - 2 * halo)
+    check_tiles(WINDOW_NAME, tiles, lif, N, (nTx, nTy))
+    code = window_pairing(WINDOW_NAME, v, weights, ev_gate, acc)
+    if on_cpu(v, weights, ev_xyc, ev_gate, alive, tiles):
+        return event_conv_window_ref(v, weights, ev_xyc, ev_gate, alive,
+                                     lif=lif, halo=halo, native=native,
+                                     tiles=tiles)
+    if tiles is not None:
+        tiles = tiles.to(torch.int32)
+    dev = check_cuda(WINDOW_NAME, v, weights, ev_xyc, ev_gate, alive,
+                     *(() if tiles is None else (tiles,)))
+    K, _, Ci, _ = weights.shape
+    T, E = ev_xyc.shape[1], ev_xyc.shape[2]
+    co_blk = conv_channel_block(Hp, Wp, Co, K, Ci)
+    v_out = torch.empty_like(v)
+    s_out = torch.empty((N, T, Hp - 2 * halo, Wp - 2 * halo, Co),
+                        dtype=acc, device=dev)
+    fn = _build.library("event_conv_window").sne_event_conv_window
+    with torch.cuda.device(dev):
+        err = fn(v.data_ptr(), weights.data_ptr(), ev_xyc.data_ptr(),
+                 ev_gate.data_ptr(), alive.data_ptr(),
+                 None if tiles is None else tiles.data_ptr(),
+                 v_out.data_ptr(), s_out.data_ptr(), N, Hp, Wp, Co, K, Ci,
+                 halo, T, E, co_blk, nTx, nTy, th, tw, code, *lif_args(lif),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(WINDOW_NAME, err)
+    LAUNCHES[WINDOW_NAME] += 1
+    return v_out, s_out

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._common import last_active
+from repro_torch.kernels.window_common import fused_window_ref
 
 
 def event_conv_batched_ref(v: torch.Tensor, weights: torch.Tensor,
@@ -49,3 +50,32 @@ def event_conv_batched_ref(v: torch.Tensor, weights: torch.Tensor,
         Y = (y[:, e, None, None] + ar[None, None, :]).expand(N, K, K)
         out[nidx, X, Y] = out[nidx, X, Y] + patch
     return out
+
+
+def event_conv_window_ref(v: torch.Tensor, weights: torch.Tensor,
+                          ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
+                          alive: torch.Tensor, *, lif, halo: int,
+                          native: bool = False, tiles=None):
+    """A whole T-timestep window of a conv layer for N slots.
+
+    Counterpart of ``repro.kernels.event_conv.ref.event_conv_window_ref``
+    and the twin of ``csrc/event_conv_window.cu``: per timestep ``leak ->
+    scatter -> clip -> fire -> reset`` (`window_common.fused_window_ref`)
+    with :func:`event_conv_batched_ref` as the scatter.
+
+    Args:
+      v:       (N, Hp, Wp, Co) halo-padded membranes, storage dtype.
+      weights: (K, K, Ci, Co) conv weights (unflipped).
+      ev_xyc:  (N, T, E, 3) int32 window schedule in halo coordinates.
+      ev_gate: (N, T, E) gates.
+      alive:   (N, T) per-timestep liveness.
+      lif, halo, native: LIF plan, halo width, int8-native policy.
+      tiles:   optional (N, nTx, nTy) interior tile bitmap.
+
+    Returns ``(v_out, spikes (N, T, Ho, Wo, Co))``.
+    """
+    def scatter(acc, xyc, gate):
+        return event_conv_batched_ref(acc, weights, xyc, gate)
+
+    return fused_window_ref(v, ev_xyc, ev_gate, alive, scatter, lif=lif,
+                            halo=halo, native=native, tiles=tiles)

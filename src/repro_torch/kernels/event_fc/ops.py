@@ -1,7 +1,9 @@
-"""Wrapper of the slot-batched event FC row-gather.
+"""Wrappers of the event FC kernels: the slot-batched row-gather and the
+fused window.
 
-CPU tensors go to the plain PyTorch version (`ref.py`); CUDA tensors
-launch ``csrc/event_fc.cu`` on the current stream, or raise.
+CPU tensors go to the plain PyTorch versions (`ref.py`); CUDA tensors
+launch ``csrc/event_fc.cu`` and ``csrc/event_fc_window.cu`` on the
+current stream, or raise.
 """
 from __future__ import annotations
 
@@ -11,10 +13,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (LAUNCHES, check_batch, check_cuda,
-                                         pairing, raise_on_error)
-from repro_torch.kernels.event_fc.ref import event_fc_batched_ref
+                                         lif_args, on_cpu, pairing,
+                                         raise_on_error, window_pairing,
+                                         window_schedule)
+from repro_torch.kernels.event_fc.ref import (event_fc_batched_ref,
+                                              event_fc_window_ref)
 
 NAME = "event_fc_batched"
+WINDOW_NAME = "event_fc_window"
 
 
 def event_fc_batched(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
@@ -42,7 +48,7 @@ def event_fc_batched(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
     code = pairing(NAME, v, w, ev_gate, out_dtype)
     if v.shape[0] == 0 or ev_xyc.shape[1] == 0:
         return v.to(out_dtype, copy=True)
-    if all(t.device.type == "cpu" for t in (v, w, ev_xyc, ev_gate)):
+    if on_cpu(v, w, ev_xyc, ev_gate):
         return event_fc_batched_ref(v, w, ev_xyc, ev_gate, in_shape,
                                     out_dtype)
     dev = check_cuda(NAME, v, w, ev_xyc, ev_gate)
@@ -57,3 +63,47 @@ def event_fc_batched(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
     raise_on_error(NAME, err)
     LAUNCHES[NAME] += 1
     return out
+
+
+def event_fc_window(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
+                    ev_gate: torch.Tensor, alive: torch.Tensor, *, lif,
+                    in_shape: Tuple[int, int, int], native: bool = False):
+    """Advance N slots through a whole T-timestep fc window in one launch.
+
+    Args:
+      v:        (N, 1, 1, Dout) membranes, storage dtype (f32; int8 native).
+      w:        (Din, Dout) weights (f32; int8 codes).
+      ev_xyc:   (N, T, E, 3) int32 window schedule, input coordinates.
+      ev_gate:  (N, T, E) gates (cast to the accumulator dtype).
+      alive:    (N, T) liveness.
+      lif, in_shape, native: LIF plan, (H, W, C) input geometry,
+                int8-native policy.
+
+    Returns ``(v_out, spikes (N, T, 1, 1, Dout))``, spikes in the
+    accumulator dtype.  fc layers take no tile bitmap.
+    """
+    acc, ev_xyc, ev_gate, alive = window_schedule(WINDOW_NAME, v, ev_xyc,
+                                                  ev_gate, alive, native)
+    H, Wi, Ci = in_shape
+    if w.dim() != 2 or w.shape[0] != H * Wi * Ci or w.shape[1] != v.shape[-1] \
+            or tuple(v.shape[1:3]) != (1, 1):
+        raise ValueError(f"{WINDOW_NAME}: weights {tuple(w.shape)}, slab "
+                         f"{tuple(v.shape)} and in_shape {in_shape} disagree")
+    code = window_pairing(WINDOW_NAME, v, w, ev_gate, acc)
+    if on_cpu(v, w, ev_xyc, ev_gate, alive):
+        return event_fc_window_ref(v, w, ev_xyc, ev_gate, alive, lif=lif,
+                                   in_shape=in_shape, native=native)
+    dev = check_cuda(WINDOW_NAME, v, w, ev_xyc, ev_gate, alive)
+    N, Dout = v.shape[0], v.shape[-1]
+    T, E = ev_xyc.shape[1], ev_xyc.shape[2]
+    v_out = torch.empty_like(v)
+    s_out = torch.empty((N, T, 1, 1, Dout), dtype=acc, device=dev)
+    fn = _build.library("event_fc_window").sne_event_fc_window
+    with torch.cuda.device(dev):
+        err = fn(v.data_ptr(), w.data_ptr(), ev_xyc.data_ptr(),
+                 ev_gate.data_ptr(), alive.data_ptr(), v_out.data_ptr(),
+                 s_out.data_ptr(), N, T, E, Wi, Ci, w.shape[0], Dout, code,
+                 *lif_args(lif), torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(WINDOW_NAME, err)
+    LAUNCHES[WINDOW_NAME] += 1
+    return v_out, s_out

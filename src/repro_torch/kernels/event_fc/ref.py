@@ -17,6 +17,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels._common import last_active
+from repro_torch.kernels.window_common import fused_window_ref
 
 
 def event_fc_batched_ref(v: torch.Tensor, w: torch.Tensor,
@@ -46,3 +47,32 @@ def event_fc_batched_ref(v: torch.Tensor, w: torch.Tensor,
     for e in range(last_active(g)):
         out = out + (w[row[:, e]] * g[:, e, None]).to(acc)
     return out.reshape(v.shape)
+
+
+def event_fc_window_ref(v: torch.Tensor, w: torch.Tensor,
+                        ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
+                        alive: torch.Tensor, *, lif,
+                        in_shape: Tuple[int, int, int],
+                        native: bool = False):
+    """A whole T-timestep window of an fc layer for N slots.
+
+    Counterpart of ``repro.kernels.event_fc.ref.event_fc_window_ref`` and
+    the twin of ``csrc/event_fc_window.cu``: the
+    `window_common.fused_window_ref` sequence with
+    :func:`event_fc_batched_ref` as the scatter (fc takes no tile bitmap).
+
+    Args:
+      v:        (N, 1, 1, Dout) membranes, storage dtype.
+      w:        (Din, Dout) weights.
+      ev_xyc:   (N, T, E, 3) int32 window schedule, input coordinates.
+      ev_gate:  (N, T, E) gates.
+      alive:    (N, T) per-timestep liveness.
+      lif, in_shape, native: LIF plan, input geometry, int8-native policy.
+
+    Returns ``(v_out, spikes (N, T, 1, 1, Dout))``.
+    """
+    def scatter(acc, xyc, gate):
+        return event_fc_batched_ref(acc, w, xyc, gate, in_shape)
+
+    return fused_window_ref(v, ev_xyc, ev_gate, alive, scatter, lif=lif,
+                            halo=0, native=native)

@@ -1,7 +1,9 @@
-"""Wrapper of the slot-batched event sum-pool scatter.
+"""Wrappers of the event sum-pool kernels: the slot-batched scatter and
+the fused window.
 
-CPU tensors go to the plain PyTorch version (`ref.py`); CUDA tensors
-launch ``csrc/event_pool.cu`` on the current stream, or raise.
+CPU tensors go to the plain PyTorch versions (`ref.py`); CUDA tensors
+launch ``csrc/event_pool.cu`` and ``csrc/event_pool_window.cu`` on the
+current stream, or raise.
 """
 from __future__ import annotations
 
@@ -9,10 +11,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._common import (LAUNCHES, check_batch, check_cuda,
-                                         pairing, raise_on_error)
-from repro_torch.kernels.event_pool.ref import event_pool_batched_ref
+                                         check_tiles, lif_args, on_cpu,
+                                         pairing, raise_on_error,
+                                         window_pairing, window_schedule)
+from repro_torch.kernels.event_pool.ref import (event_pool_batched_ref,
+                                                event_pool_window_ref)
+from repro_torch.kernels.window_common import tile_grid
 
 NAME = "event_pool_batched"
+WINDOW_NAME = "event_pool_window"
 THREADS = 256            # the kernel's block size (kThreads)
 MAX_BLOCKS_PER_SLOT = 8
 
@@ -51,7 +58,7 @@ def event_pool_batched(v: torch.Tensor, w: torch.Tensor,
     code = pairing(NAME, v, w, ev_gate, out_dtype)
     if v.shape[0] == 0 or ev_xyc.shape[1] == 0:
         return v.to(out_dtype, copy=True)
-    if all(t.device.type == "cpu" for t in (v, w, ev_xyc, ev_gate)):
+    if on_cpu(v, w, ev_xyc, ev_gate):
         return event_pool_batched_ref(v, w, ev_xyc, ev_gate, stride,
                                       out_dtype)
     dev = check_cuda(NAME, v, w, ev_xyc, ev_gate)
@@ -66,3 +73,61 @@ def event_pool_batched(v: torch.Tensor, w: torch.Tensor,
     raise_on_error(NAME, err)
     LAUNCHES[NAME] += 1
     return out
+
+
+def event_pool_window(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
+                      ev_gate: torch.Tensor, alive: torch.Tensor, *, lif,
+                      stride: int, native: bool = False, tiles=None):
+    """Advance N slots through a whole T-timestep pool window in one launch.
+
+    Args:
+      v:       (N, Ho, Wo, C) membranes, storage dtype (f32; int8 native).
+      w:       (C,) per-channel weights (f32; int8 codes).
+      ev_xyc:  (N, T, E, 3) int32 window schedule, input coordinates.
+      ev_gate: (N, T, E) gates (cast to the accumulator dtype).
+      alive:   (N, T) liveness.
+      lif, stride, native: LIF plan, pooling stride, int8-native policy.
+      tiles:   optional (N, nTx, nTy) tile bitmap over (Ho, Wo);
+               hard-reset layers only.  None runs every tile.
+
+    Returns ``(v_out, spikes (N, T, Ho, Wo, C))``, spikes in the
+    accumulator dtype.
+    """
+    acc, ev_xyc, ev_gate, alive = window_schedule(WINDOW_NAME, v, ev_xyc,
+                                                  ev_gate, alive, native)
+    if w.dim() != 1 or w.shape[0] != v.shape[3]:
+        raise ValueError(f"{WINDOW_NAME}: weights {tuple(w.shape)} do not "
+                         f"match slab {tuple(v.shape)}")
+    if stride < 1:
+        raise ValueError(f"{WINDOW_NAME}: stride {stride} < 1")
+    N, Ho, Wo, C = v.shape
+    nTx, nTy, th, tw = tile_grid(Ho, Wo)
+    check_tiles(WINDOW_NAME, tiles, lif, N, (nTx, nTy))
+    code = window_pairing(WINDOW_NAME, v, w, ev_gate, acc)
+    if on_cpu(v, w, ev_xyc, ev_gate, alive, tiles):
+        return event_pool_window_ref(v, w, ev_xyc, ev_gate, alive, lif=lif,
+                                     stride=stride, native=native,
+                                     tiles=tiles)
+    if tiles is not None:
+        tiles = tiles.to(torch.int32)
+    dev = check_cuda(WINDOW_NAME, v, w, ev_xyc, ev_gate, alive,
+                     *(() if tiles is None else (tiles,)))
+    T, E = ev_xyc.shape[1], ev_xyc.shape[2]
+    v_out = torch.empty_like(v)
+    s_out = torch.empty((N, T, Ho, Wo, C), dtype=acc, device=dev)
+    # the running membranes: in place in v_out on the float carrier, an
+    # int32 buffer on the native path (the slab is stored in int8)
+    acc_buf = v_out if acc == v.dtype else torch.empty(v.shape, dtype=acc,
+                                                       device=dev)
+    fn = _build.library("event_pool_window").sne_event_pool_window
+    with torch.cuda.device(dev):
+        err = fn(v.data_ptr(), w.data_ptr(), ev_xyc.data_ptr(),
+                 ev_gate.data_ptr(), alive.data_ptr(),
+                 None if tiles is None else tiles.data_ptr(),
+                 acc_buf.data_ptr(), v_out.data_ptr(), s_out.data_ptr(), N,
+                 Ho, Wo, C, stride, T, E, nTx, nTy, th, tw,
+                 pool_blocks_per_slot(Ho * Wo * C), code, *lif_args(lif),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(WINDOW_NAME, err)
+    LAUNCHES[WINDOW_NAME] += 1
+    return v_out, s_out

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._common import last_active
+from repro_torch.kernels.window_common import fused_window_ref
 
 
 def event_pool_batched_ref(v: torch.Tensor, w: torch.Tensor,
@@ -46,3 +47,32 @@ def event_pool_batched_ref(v: torch.Tensor, w: torch.Tensor,
     for e in range(last_active(ev_gate)):
         buf[ar, site[:, e]] = buf[ar, site[:, e]] + val[:, e]
     return buf[:, :S].reshape(v.shape)
+
+
+def event_pool_window_ref(v: torch.Tensor, w: torch.Tensor,
+                          ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
+                          alive: torch.Tensor, *, lif, stride: int,
+                          native: bool = False, tiles=None):
+    """A whole T-timestep window of a pool layer for N slots.
+
+    Counterpart of ``repro.kernels.event_pool.ref.event_pool_window_ref``
+    and the twin of ``csrc/event_pool_window.cu``: the
+    `window_common.fused_window_ref` sequence with
+    :func:`event_pool_batched_ref` as the scatter.
+
+    Args:
+      v:       (N, Ho, Wo, C) membranes, storage dtype.
+      w:       (C,) per-channel weights.
+      ev_xyc:  (N, T, E, 3) int32 window schedule, input coordinates.
+      ev_gate: (N, T, E) gates.
+      alive:   (N, T) per-timestep liveness.
+      lif, stride, native: LIF plan, pooling stride, int8-native policy.
+      tiles:   optional (N, nTx, nTy) tile bitmap over (Ho, Wo).
+
+    Returns ``(v_out, spikes (N, T, Ho, Wo, C))``.
+    """
+    def scatter(acc, xyc, gate):
+        return event_pool_batched_ref(acc, w, xyc, gate, stride)
+
+    return fused_window_ref(v, ev_xyc, ev_gate, alive, scatter, lif=lif,
+                            halo=0, native=native, tiles=tiles)

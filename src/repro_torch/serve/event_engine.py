@@ -6,8 +6,9 @@ a host-side numpy collector bins every slot's next window of events into
 padded per-timestep buckets (overflow past the bucket is dropped and
 counted; out-of-range events are dropped and counted apart); all active
 slots then advance together through one window step of the compiled
-layer program (`core.layer_program.window_step`), whose scatters are the
-port's CUDA kernels.
+layer program (`core.layer_program.window_step`), whose kernels are the
+port's CUDA kernels: by default the fused-window lowering (one launch per
+layer per window, tile sparsity on), or the per-step one.
 
 **Idle skip.**  A slot whose window holds no input event provably does no
 work anywhere in the network (hard resets, ``leak >= 0``), so it skips
@@ -41,6 +42,7 @@ from repro_torch.core.lif import supports_idle_skip
 from repro_torch.core.policies import BACKEND_LOCAL, ExecutionPolicy
 from repro_torch.core.sne_net import SNNSpec
 from repro_torch.device import resolve_device
+from repro_torch.kernels.window_common import tile_grid
 from repro_torch.serve.telemetry import RequestTelemetry, request_telemetry
 
 
@@ -110,11 +112,13 @@ class EventServeEngine:
                  device=None):
         """Compile the network and allocate the slot state on ``device``.
 
-        ``policy`` selects dtype policy, lowering and idle skip; the port
-        serves ``fusion_policy="per-step"`` on the ``"local"`` backend
-        (other values raise).  ``device`` defaults to CUDA and raises
-        without a card unless ``"cpu"`` is asked for; ``params`` must
-        already live there.
+        ``policy`` (default ``ExecutionPolicy()``: float32 carrier,
+        fused-window, idle skip and tile sparsity on) selects dtype policy,
+        lowering, idle skip and tile sparsity; the port serves the
+        ``"per-step"`` and ``"fused-window"`` lowerings on the ``"local"``
+        backend (other values raise).  ``device`` defaults to CUDA and
+        raises without a card unless ``"cpu"`` is asked for; ``params``
+        must already live there.
         """
         if n_slots < 1 or window < 1:
             raise ValueError("need n_slots >= 1 and window >= 1")
@@ -183,7 +187,12 @@ class EventServeEngine:
                       "leak_flushes": 0,
                       "collected_events": 0, "launched_events": 0,
                       "padded_event_slots": 0, "padded_event_slots_pow2": 0,
-                      "launch_bytes": 0}
+                      "launch_bytes": 0,
+                      # measured input tile occupancy: hot tiles of the
+                      # layer-0 tile grid per launched (slot, window), and
+                      # the grid's size
+                      "hot_tiles": 0, "total_tiles": 0}
+        self._tile_grid0 = tile_grid(*spec.in_shape[:2])
         # bucket occupancy histogram: bin 0 = empty, bin b>0 = fills whose
         # power-of-two ceiling is 2^(b-1)
         self.bucket_fill_hist = np.zeros(
@@ -435,6 +444,15 @@ class EventServeEngine:
         self.stats["padded_event_slots_pow2"] += self.W * len(gidx) * Eb_pow2
         self.stats["launch_bytes"] += (xyc_w.nbytes + gate_w.nbytes
                                        + alive_w.nbytes)
+        # input tile occupancy over the first A batch positions, as the
+        # reference counts it (the dummy tail mirrors slot 0)
+        nTx, nTy, th, tw = self._tile_grid0
+        hot = np.zeros((A, nTx, nTy), bool)
+        t_, s_, e_ = np.nonzero(gate_w[:, :A] > 0)
+        hot[s_, np.minimum(xyc_w[t_, s_, e_, 0] // th, nTx - 1),
+            np.minimum(xyc_w[t_, s_, e_, 1] // tw, nTy - 1)] = True
+        self.stats["hot_tiles"] += int(hot.sum())
+        self.stats["total_tiles"] += A * nTx * nTy
         # retire: the one device-to-host read of the window
         counts_np = counts.cpu().numpy().astype(np.float64)
         drops_np = drops.cpu().numpy().astype(np.float64)

@@ -43,6 +43,11 @@ def _imported_roots(path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     assert len(PORT_FILES) > 20
+    scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/kernels/window_common.py",
+            "src/repro_torch/kernels/event_conv/ops.py",
+            "src/repro_torch/core/layer_program.py",
+            "chip_smoke.py"} <= scanned
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in PORT_FILES}
     assert not {k: v for k, v in offenders.items() if v}
@@ -61,16 +66,20 @@ def no_cuda():
         pytest.skip("checks the machine without a CUDA card")
 
 
-@pytest.mark.parametrize("entry", ["compile_program", "engine", "load_net",
+@pytest.mark.parametrize("entry", ["compile_program", "compile_fused",
+                                   "engine", "engine_default", "load_net",
                                    "params_from_numpy", "init_snn"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
     calls = {
         "compile_program": lambda: compile_program(spec),
+        "compile_fused": lambda: compile_program(
+            spec, policy=ExecutionPolicy()),
         "engine": lambda: EventServeEngine(spec, params, n_slots=2,
                                            policy=ExecutionPolicy(
                                                fusion_policy="per-step")),
+        "engine_default": lambda: EventServeEngine(spec, params, n_slots=2),
         "load_net": lambda: load_net(
             sample_recording_path("tiny_gesture_trained.npz"), spec),
         "params_from_numpy": lambda: params_from_numpy(
@@ -84,10 +93,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
 def test_the_cuda_wrappers_refuse_mixed_devices():
     # a CPU slab with a device that is not the CPU never reaches the plain
     # version: the meta device stands in for a CUDA tensor here
-    from repro_torch.kernels.event_fc import event_fc_batched
+    from repro_torch.core.lif import LifParams
+    from repro_torch.kernels.event_fc import event_fc_batched, event_fc_window
     v = torch.zeros((1, 1, 1, 4))
     w = torch.zeros((8, 4), device="meta")
     xyc = torch.zeros((1, 2, 3), dtype=torch.int32)
     gate = torch.ones((1, 2))
     with pytest.raises(ValueError, match="expected CUDA"):
         event_fc_batched(v, w, xyc, gate, (2, 2, 2))
+    with pytest.raises(ValueError, match="expected CUDA"):
+        event_fc_window(v, w, xyc[:, None], gate[:, None], torch.ones((1, 1)),
+                        lif=LifParams(), in_shape=(2, 2, 2))

@@ -1,4 +1,5 @@
-"""The port's three scatter kernels against the JAX reference.
+"""The port's three scatter kernels against the JAX reference, and all
+six CUDA kernels against their plain versions on the card.
 
 The same numpy inputs go through the port's wrapper on CPU tensors (which
 runs the plain PyTorch version) and through the JAX package's
@@ -8,7 +9,9 @@ accumulation order is visible), zero gates, pool VALID drops and empty
 batches.  One interpret-mode Pallas check per kernel runs at the smallest
 shape.  Every comparison is exact (``np.array_equal``, which counts -0.0
 equal to +0.0: a gated-off event in the reference adds ``w * 0``, which
-can flip the sign of a zero and nothing else; the port skips it).
+can flip the sign of a zero and nothing else; the port skips it).  The
+window kernels' plain versions are held against the reference in
+``test_torch_window.py``, on the inputs :func:`window_case` builds here.
 
 The CUDA kernels themselves run only on a card: their tests carry the
 ``gpu`` marker and skip here.  The card's machine has no JAX, so this file
@@ -22,13 +25,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.lif import LifParams
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.event_conv import event_conv_batched
+from repro_torch.kernels.event_conv import (event_conv_batched,
+                                            event_conv_window,
+                                            event_conv_window_ref)
 from repro_torch.kernels.event_conv.ref import event_conv_batched_ref
-from repro_torch.kernels.event_fc import event_fc_batched
+from repro_torch.kernels.event_fc import (event_fc_batched, event_fc_window,
+                                          event_fc_window_ref)
 from repro_torch.kernels.event_fc.ref import event_fc_batched_ref
-from repro_torch.kernels.event_pool import event_pool_batched
+from repro_torch.kernels.event_pool import (event_pool_batched,
+                                            event_pool_window,
+                                            event_pool_window_ref)
 from repro_torch.kernels.event_pool.ref import event_pool_batched_ref
+from repro_torch.kernels.window_common import (dilate_conv, dilate_pool,
+                                               seed_site_map, sites_to_tiles,
+                                               tile_grid)
 
 torch.set_num_threads(1)
 
@@ -230,6 +242,97 @@ def test_plain_matches_interpret_mode_pallas(kind):
 
 
 # ---------------------------------------------------------------------------
+# the fused window kernels' inputs (used here and by test_torch_window.py)
+# ---------------------------------------------------------------------------
+
+# (slab, weights, gate, accumulator) of the window kernels' two pairings
+WINDOW_PAIRINGS = {
+    "f32": (np.float32, np.float32, np.float32, np.float32),
+    "native": (np.int8, np.int8, np.int32, np.int32),
+}
+# hard-reset plans: a dyadic leak keeps the cold-tile decay exact in f32
+WINDOW_LIF = {"f32": LifParams(threshold=1.5, leak=0.25, state_clip=8.0),
+              "native": LifParams(threshold=14.0, leak=2.0,
+                                  state_clip=127.0)}
+# (input geometry, output channels) per kind; prime sides, pool remainders
+WINDOW_GEOMETRY = {"conv": ((7, 9, 2), 4), "pool": ((10, 11, 3), 3),
+                   "fc": ((2, 3, 2), 5)}
+
+
+def window_case(kind, pairing, tiles, seed, N=3, T=4, E=12):
+    """Numpy inputs of one window launch of ``kind`` and its keywords.
+
+    ``tiles`` is None (dense), ``"ones"`` (an all-hot bitmap) or
+    ``"sparse"``: events confined to the top-left third, the bitmap
+    propagated from them as `window_tile_maps` does, and starting
+    membranes below threshold (the serving invariant cold tiles rest on).
+    Slot 1 freezes its last timestep and slot 2 its second.
+
+    Returns ``(v, w, xyc, gate, alive, kwargs)``; ``xyc`` is slot-major
+    (N, T, E, 3), in halo coordinates for conv; ``kwargs`` holds
+    ``lif``, the kind's geometry keyword, ``native`` and ``tiles`` (numpy
+    or None; fc takes none).
+    """
+    rng = np.random.default_rng(seed)
+    (H, W, C), Co = WINDOW_GEOMETRY[kind]
+    v_dt, w_dt, g_dt, _ = WINDOW_PAIRINGS[pairing]
+    lif = WINDOW_LIF[pairing]
+    hi = (H, W) if tiles != "sparse" else (max(1, H // 3), max(1, W // 3))
+    xyc = np.stack([rng.integers(0, hi[0], (N, T, E)),
+                    rng.integers(0, hi[1], (N, T, E)),
+                    rng.integers(0, C, (N, T, E))], -1).astype(np.int32)
+    gate = (rng.random((N, T, E)) < 0.75).astype(g_dt)
+    alive = np.ones((N, T), np.float32)
+    alive[1, -1] = alive[2 % N, 1] = 0.0
+    kw = {"lif": lif, "native": pairing == "native"}
+    if kind == "conv":
+        K, P = 3, 1
+        Ho, Wo, h = H + 2 * P - K + 1, W + 2 * P - K + 1, K - 1
+        slab, wshape = (N, Ho + 2 * h, Wo + 2 * h, Co), (K, K, C, Co)
+        kw["halo"] = h
+    elif kind == "pool":
+        s = 2
+        Ho, Wo = H // s, W // s
+        slab, wshape = (N, Ho, Wo, C), (C,)
+        kw["stride"] = s
+    else:
+        Ho = Wo = 1
+        slab, wshape = (N, 1, 1, Co), (H * W * C, Co)
+        kw["in_shape"] = (H, W, C)
+    top = lif.threshold - (1 if pairing == "native" else 0.1)
+    if pairing == "f32":
+        v = rng.uniform(-1.4, top if tiles == "sparse" else 2.5, slab)
+        w = rng.standard_normal(wshape)
+    else:
+        v = rng.integers(-127, int(top) + 1 if tiles == "sparse" else 128,
+                         slab)
+        w = rng.integers(-8, 8, wshape)
+    v, w = v.astype(v_dt), w.astype(w_dt)
+    bitmap = None
+    if tiles is not None and kind != "fc":
+        grid = tile_grid(Ho, Wo)
+        if tiles == "ones":
+            bitmap = np.ones((N, grid[0], grid[1]), np.int32)
+        else:
+            sites = seed_site_map(_t(xyc.transpose(1, 0, 2, 3)),
+                                  _t(gate.transpose(1, 0, 2)), (H, W))
+            sites = (dilate_conv(sites, K, P) if kind == "conv"
+                     else dilate_pool(sites, s, (Ho, Wo)))
+            bitmap = sites_to_tiles(sites, grid).numpy()
+            assert 0 < bitmap.sum() < bitmap.size, "tiles should be mixed"
+    if kind == "conv":
+        xyc = xyc + np.asarray([P, P, 0], np.int32)
+    if kind != "fc":
+        kw["tiles"] = bitmap
+    return v, w, xyc, gate, alive, kw
+
+
+WINDOW_FNS = {"conv": (event_conv_window, event_conv_window_ref),
+              "pool": (event_pool_window, event_pool_window_ref),
+              "fc": (event_fc_window, event_fc_window_ref)}
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions (card only)
 # ---------------------------------------------------------------------------
 
@@ -258,3 +361,25 @@ def test_cuda_kernel_matches_plain(cuda, kind, pairing):
     torch.cuda.synchronize()
     assert LAUNCHES[f"event_{kind}_batched"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pairing", list(WINDOW_PAIRINGS))
+@pytest.mark.parametrize("kind,tiles", [("conv", None), ("conv", "sparse"),
+                                        ("pool", None), ("pool", "sparse"),
+                                        ("fc", None)])
+def test_cuda_window_kernel_matches_plain(cuda, kind, tiles, pairing):
+    # E > the kernels' 128-event stage: more than one chunk per timestep
+    v, w, xyc, gate, alive, kw = window_case(kind, pairing, tiles, 10, N=4,
+                                             T=4, E=200)
+    if kw.get("tiles") is not None:
+        kw["tiles"] = _t(kw["tiles"]).to(cuda)
+    fn, plain = WINDOW_FNS[kind]
+    args = [_t(a).to(cuda) for a in (v, w, xyc, gate, alive)]
+    before = LAUNCHES[f"event_{kind}_window"]
+    got = fn(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"event_{kind}_window"] == before + 1
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.equal(g, x)

@@ -1,11 +1,15 @@
-"""The port's per-step layer-program executor against the JAX reference.
+"""The port's layer-program executor against the JAX reference.
 
 `window_step` on `tiny_net` (3 slots, one slot frozen mid-window, nonzero
 deferred idle decay, random starting membranes) must equal the reference's
 ``window_step(use_pallas=False)`` bitwise — membranes, class counts,
-per-layer event counts and drops — under both dtype policies: float
-weights left unquantized on the float32 carrier (accumulation order is
-visible) and int4 codes on the int8-native path.
+per-layer event counts and drops — under both dtype policies (float
+weights left unquantized on the float32 carrier, so accumulation order is
+visible; int4 codes on the int8-native path), under the per-step and the
+fused-window lowering, tile sparsity on and off.  The fused lowering must
+also equal the port's own per-step one; on the "corner" schedule (events
+in one corner, membranes below threshold, as in serving) the tile bitmaps
+are genuinely sparse.
 """
 import dataclasses
 import functools
@@ -50,8 +54,7 @@ def test_capacities_and_geometry_match_jax(nets):
             jlp.layer_stream_capacity(jop.spec, 100)
 
 
-@pytest.mark.parametrize("fusion,item", [("fused-window", "item 4"),
-                                         ("fused-network", "item 5")])
+@pytest.mark.parametrize("fusion,item", [("fused-network", "item 5")])
 def test_fused_policies_are_refused(fusion, item):
     with pytest.raises(NotImplementedError, match=item):
         lp.compile_program(tiny_net(), device="cpu",
@@ -71,21 +74,27 @@ def test_native_policy_refuses_float_specs_and_weights():
         lp.check_native_weights(prog.ops[0], q.params_for("f32-carrier")[0])
 
 
-def _inputs(prog, rng, N, W, E, native):
-    """Random starting membranes and a window of layer-0 events."""
+def _inputs(prog, rng, N, W, E, native, corner=False):
+    """Random starting membranes and a window of layer-0 events; with
+    ``corner``, events in the top-left quarter and every membrane below
+    its threshold (the serving invariant tile sparsity rests on)."""
     states = []
     for op in prog.ops:
         shape = tuple(lp.padded_state(op, n_slots=N).shape)
         if native:
             clip = int(op.lif.state_clip)
-            states.append(rng.integers(-clip, clip + 1, shape)
+            top = int(op.lif.threshold) - 1 if corner else clip
+            states.append(rng.integers(-clip, top + 1, shape)
                           .astype(np.int8))
         else:
-            states.append((rng.standard_normal(shape) * 0.6)
-                          .astype(np.float32))
+            v = (rng.standard_normal(shape) * 0.6).astype(np.float32)
+            if corner:
+                v = np.minimum(v, np.float32(op.lif.threshold * 0.9))
+            states.append(v)
     H, Wd, C = prog.spec.in_shape
-    xyc = np.stack([rng.integers(0, H, (W, N, E)),
-                    rng.integers(0, Wd, (W, N, E)),
+    hi = (H // 4, Wd // 4) if corner else (H, Wd)
+    xyc = np.stack([rng.integers(0, hi[0], (W, N, E)),
+                    rng.integers(0, hi[1], (W, N, E)),
                     rng.integers(0, C, (W, N, E))], -1).astype(np.int32)
     gate = (rng.random((W, N, E)) < 0.7).astype(np.float32)
     gate[:, 1, E // 2:] = 0.0                     # a short bucket
@@ -96,8 +105,12 @@ def _inputs(prog, rng, N, W, E, native):
     return states, cc, xyc, gate, alive, pre_dt
 
 
+@pytest.mark.parametrize("schedule", ["uniform", "corner"])
+@pytest.mark.parametrize("fusion,tile_sparsity", [
+    ("per-step", True), ("fused-window", True), ("fused-window", False)])
 @pytest.mark.parametrize("dtype_policy", ["f32-carrier", "int8-native"])
-def test_window_step_matches_jax(dtype_policy):
+def test_window_step_matches_jax(dtype_policy, fusion, tile_sparsity,
+                                 schedule):
     native = dtype_policy == "int8-native"
     spec, jspec = tiny_net(), jtiny()
     rng = np.random.default_rng(11)
@@ -116,15 +129,25 @@ def test_window_step_matches_jax(dtype_policy):
     else:
         params = [EConvParams(w=torch.from_numpy(a)) for a in arrays]
         jparams = [JParams(w=jnp.asarray(a)) for a in arrays]
-    pol = ExecutionPolicy(dtype_policy=dtype_policy, fusion_policy="per-step")
+    pol = ExecutionPolicy(dtype_policy=dtype_policy, fusion_policy=fusion,
+                          tile_sparsity=tile_sparsity)
     prog = lp.compile_program(spec, policy=pol, device="cpu")
+    step_prog = lp.compile_program(spec, device="cpu", policy=(
+        dataclasses.replace(pol, fusion_policy="per-step")))
     jprog = jlp.compile_program(jspec, policy=JPolicy(**dataclasses.asdict(
         pol)))
-    states, cc, xyc, gate, alive, pre_dt = _inputs(prog, rng, 3, 4, 40,
-                                                   native)
+    states, cc, xyc, gate, alive, pre_dt = _inputs(
+        prog, rng, 3, 4, 40 if schedule == "uniform" else 12, native,
+        corner=schedule == "corner")
+    if schedule == "corner" and prog.tile_sparsity:
+        tiles = lp.window_tile_maps(prog, torch.from_numpy(xyc),
+                                    torch.from_numpy(gate))
+        assert 0 < int(tiles[0].sum()) < tiles[0].numel()
     t_states = tuple(torch.from_numpy(s) for s in states)
     j_states = tuple(jnp.asarray(s) for s in states)
+    s_states = t_states
     t_cc, j_cc = torch.from_numpy(cc), jnp.asarray(cc)
+    s_cc = t_cc
     # jitted like the reference engine runs it (one compile, not op by op)
     jstep = jax.jit(functools.partial(jlp.window_step, program=jprog,
                                       use_pallas=False))
@@ -143,3 +166,14 @@ def test_window_step_matches_jax(dtype_policy):
         np.testing.assert_array_equal(t_cc.numpy(), np.asarray(j_cc))
         np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
         np.testing.assert_array_equal(drops.numpy(), np.asarray(jdrops))
+        if fusion == "per-step" or (schedule == "uniform"
+                                    and prog.tile_sparsity):
+            continue    # membranes above threshold break the tile contract
+        # the port's per-step lowering is the bitwise oracle of the fused
+        s_states, s_cc, s_counts, s_drops = lp.window_step(
+            params, s_states, s_cc, torch.from_numpy(xyc),
+            torch.from_numpy(gate), torch.from_numpy(alive),
+            torch.from_numpy(pre), program=step_prog)
+        for a, b in zip(t_states + (t_cc, counts, drops),
+                        s_states + (s_cc, s_counts, s_drops)):
+            assert torch.equal(a, b)

@@ -1,11 +1,12 @@
 """The port's serving engine end to end, against the JAX reference.
 
-* the trained tiny checkpoint, served per-step under both dtype policies,
-  equals the committed golden ``tests/golden/tiny_gesture_trained_serve.npz``
-  key for key;
+* the trained tiny checkpoint, served under both dtype policies, per-step
+  and fused-window (tile sparsity on and off), equals the committed golden
+  ``tests/golden/tiny_gesture_trained_serve.npz`` key for key;
 * the port's engine equals the live JAX engine (``use_pallas=False``) on
-  synthesized 12x12 recordings, idle skip on and off: per-request class
-  counts and telemetry, engine statistics, padding and drop accounting;
+  synthesized 12x12 recordings, idle skip on and off, under the same
+  lowerings: per-request class counts and telemetry, engine statistics
+  (layer-0 tile occupancy included), padding and drop accounting;
 * the full-width Fig. 6 slice (``dvs_gesture_net(n_timesteps=8)``, two
   requests at 2 MHz on two slots) equals the JAX engine under both dtype
   policies.
@@ -41,6 +42,9 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "tiny_gesture_trained_serve.npz")
 WINDOW_US = 1000
 POLICIES = ["f32-carrier", "int8-native"]
+# (fusion policy, tile sparsity): the per-step oracle and the default
+# fused-window lowering with its bitmaps on and off
+FUSIONS = [("per-step", True), ("fused-window", True), ("fused-window", False)]
 
 
 def _results(reqs):
@@ -63,10 +67,10 @@ def _results(reqs):
 
 
 # counters the reference keeps and the port does not: SLO evictions (the
-# streaming runtime) and layer-0 tile occupancy (tile sparsity) are not
-# ported yet; the port counts kernel launches where they happen, in
-# `repro_torch.kernels.LAUNCHES`, not analytically per window
-_NOT_IN_PORT = ("evicted", "hot_tiles", "total_tiles", "kernel_launches")
+# streaming runtime) are not ported yet; the port counts kernel launches
+# where they happen, in `repro_torch.kernels.LAUNCHES`, not analytically
+# per window
+_NOT_IN_PORT = ("evicted", "kernel_launches")
 
 
 def _stats(jeng):
@@ -79,8 +83,10 @@ def _assert_same(a, b):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+@pytest.mark.parametrize("fusion,tile_sparsity", FUSIONS)
 @pytest.mark.parametrize("dtype_policy", POLICIES)
-def test_trained_checkpoint_equals_golden(dtype_policy):
+def test_trained_checkpoint_equals_golden(dtype_policy, fusion,
+                                          tile_sparsity):
     spec = tiny_net()
     params, _ = load_net(ds.sample_recording_path("tiny_gesture_trained.npz"),
                          spec, device="cpu")
@@ -91,7 +97,8 @@ def test_trained_checkpoint_equals_golden(dtype_policy):
     eng = EventServeEngine(qn.spec, qn.params_for(dtype_policy), n_slots=2,
                            window=4, device="cpu", policy=ExecutionPolicy(
                                dtype_policy=dtype_policy,
-                               fusion_policy="per-step"))
+                               fusion_policy=fusion,
+                               tile_sparsity=tile_sparsity))
     eng.run(reqs)
     res = _results(reqs)
     gold = np.load(GOLDEN)
@@ -100,7 +107,8 @@ def test_trained_checkpoint_equals_golden(dtype_policy):
 
 
 def _both_engines(spec, jspec, arrays, dtype_policy, recs, T, n_slots,
-                  idle_skip=True, step_capacities=None):
+                  idle_skip=True, step_capacities=None, fusion="per-step",
+                  tile_sparsity=True):
     """Serve the same recordings on the port and on the JAX engine.
 
     The port quantizes the numpy weights (its parity with the reference's
@@ -114,8 +122,8 @@ def _both_engines(spec, jspec, arrays, dtype_policy, recs, T, n_slots,
         for jl, l in zip(jspec.layers, q.spec.layers)))
     params = q.params_for(dtype_policy)
     jparams = [JParams(w=jnp.asarray(p.w.numpy())) for p in params]
-    pol = ExecutionPolicy(dtype_policy=dtype_policy, fusion_policy="per-step",
-                          idle_skip=idle_skip)
+    pol = ExecutionPolicy(dtype_policy=dtype_policy, fusion_policy=fusion,
+                          idle_skip=idle_skip, tile_sparsity=tile_sparsity)
     out = []
     for eng, mod, in_shape in (
             (EventServeEngine(q.spec, params, n_slots, window=4,
@@ -135,9 +143,13 @@ def _both_engines(spec, jspec, arrays, dtype_policy, recs, T, n_slots,
     return out
 
 
-@pytest.mark.parametrize("idle_skip", [True, False])
+# without idle skip only the oracle lowering: the fused lowering's full
+# batch is held by the golden test and test_window_step_matches_jax
+@pytest.mark.parametrize("idle_skip,fusion,tile_sparsity", [
+    (True, *f) for f in FUSIONS] + [(False, *FUSIONS[0])])
 @pytest.mark.parametrize("dtype_policy", POLICIES)
-def test_engine_matches_live_jax_engine(dtype_policy, idle_skip):
+def test_engine_matches_live_jax_engine(dtype_policy, idle_skip, fusion,
+                                        tile_sparsity):
     spec, jspec = tiny_net(), jtiny()
     arrays = [p.w.numpy() for p in init_snn(np.random.default_rng(21), spec,
                                             device="cpu")]
@@ -149,7 +161,8 @@ def test_engine_matches_live_jax_engine(dtype_policy, idle_skip):
             dict(seed=3, rate_hz=90_000.0, label=0, duration_us=16_000)]
     (mine, eng), (ref, jeng) = _both_engines(spec, jspec, arrays,
                                              dtype_policy, recs, 16, 3,
-                                             idle_skip, (16, 96, 24))
+                                             idle_skip, (16, 96, 24),
+                                             fusion, tile_sparsity)
     _assert_same(mine, ref)
     assert eng.stats == _stats(jeng)
     assert eng.padding_waste() == jeng.padding_waste()
@@ -158,6 +171,7 @@ def test_engine_matches_live_jax_engine(dtype_policy, idle_skip):
     assert eng.inter_layer_drops()["inter_layer_dropped_total"] > 0
     if idle_skip:
         assert eng.stats["skipped_slot_windows"] > 0
+    assert 0 < eng.stats["hot_tiles"] < eng.stats["total_tiles"]
 
 
 @pytest.mark.parametrize("dtype_policy", POLICIES)
