@@ -23,19 +23,27 @@ non-zero):
       bitmap and with the sparse bitmap ``window_tile_maps`` gives; beside
       PyTorch's route (the library scatter per timestep plus the LIF as
       torch ops, T times) and the per-step CUDA path for the same window;
+   c. the fused-network megakernel on the same real window, whole network,
+      both pairings, sparse and all-ones bitmaps, beside the port's
+      fused-window lowering and PyTorch's route on that window; and the
+      fused LIF kernel on the conv1 slab's shape and an odd size, dt 0, 1
+      and 5, clip on and off;
 3. the trained tiny checkpoint served through the port's engine under
    ``ExecutionPolicy()`` (fused-window, tile sparsity on), tile sparsity
-   off, and per-step, both dtype policies, against ``tests/golden/
-   tiny_gesture_trained_serve.npz``, key for key;
+   off, fused-network and per-step, both dtype policies, against
+   ``tests/golden/tiny_gesture_trained_serve.npz``, key for key;
 4. the main path: the full-width Fig. 6 network (``dvs_gesture_net()``,
    128x128x2, T = 100, seeded random weights quantised to int4) serving
    two cohorts of 8 synthetic DVS recordings (about 1.2% and 4.9% input
-   activity) on 8 slots, under the default fused-window lowering and under
-   per-step, both dtype policies; every request must agree bitwise across
-   lowerings and policies; each lowering's kernels must have launched
-   (launch counts set to 0 just before each lowering's run and read just
-   after); one cohort of each lowering is traced; a T = 8 cut of two
-   requests is also served by the plain CPU path and must agree bitwise.
+   activity) on 8 slots, under the default fused-window lowering, under
+   fused-network (warnings are errors there: no fallback may fire) and
+   under per-step, both dtype policies; every request must agree bitwise
+   across lowerings and policies; each lowering's kernels must have
+   launched (launch counts set to 0 just before each lowering's run and
+   read just after; fused-network exactly one launch per window and no
+   other kernel); one cohort of each lowering is traced; a T = 8 cut of
+   two requests is also served by the plain CPU path and must agree
+   bitwise.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -45,6 +53,7 @@ non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -75,7 +84,18 @@ REPLACES = {
     "event_conv_window": "src/repro/kernels/event_conv/kernel.py:272",
     "event_pool_window": "src/repro/kernels/event_pool/kernel.py:233",
     "event_fc_window": "src/repro/kernels/event_fc/kernel.py:197",
+    "network_window": "src/repro/kernels/network_window/kernel.py:247",
+    "lif_fused": "src/repro/kernels/lif/kernel.py:46",
 }
+# the lowering whose serving run launches each kernel (None: no serving
+# path reaches it; only its public op calls it)
+PATH_OF = {"event_conv_batched": "per-step", "event_pool_batched": "per-step",
+           "event_fc_batched": "per-step",
+           "event_conv_window": "fused-window",
+           "event_pool_window": "fused-window",
+           "event_fc_window": "fused-window",
+           "network_window": "fused-network", "lif_fused": None}
+LOWERINGS = ("fused-window", "fused-network", "per-step")
 SOURCES = {
     "event_conv_batched": "src/repro_torch/kernels/csrc/event_conv.cu",
     "event_pool_batched": "src/repro_torch/kernels/csrc/event_pool.cu",
@@ -83,6 +103,8 @@ SOURCES = {
     "event_conv_window": "src/repro_torch/kernels/csrc/event_conv_window.cu",
     "event_pool_window": "src/repro_torch/kernels/csrc/event_pool_window.cu",
     "event_fc_window": "src/repro_torch/kernels/csrc/event_fc_window.cu",
+    "network_window": "src/repro_torch/kernels/csrc/network_window.cu",
+    "lif_fused": "src/repro_torch/kernels/csrc/lif_fused.cu",
 }
 
 
@@ -122,11 +144,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 def _layer_inputs(op, rng, pairing: str, dev):
     """Slab, weights, events and gates for one layer at the main path's
     shapes: layer 0 gets a collector bucket at a mid ladder rung; later
-    layers get what ``frame_to_events`` routes from a frame with that many
+    layers get what ``route_frame`` routes from a frame with that many
     spikes (``min(cap, sites)`` events, the spikes first)."""
     import numpy as np
     import torch
-    from repro_torch.core.layer_program import frame_to_events
+    from repro_torch.kernels.window_common import route_frame
     from repro_torch.serve.event_engine import event_bucket_ladder
     spec = op.spec
     H, W, C = spec.in_shape
@@ -148,7 +170,7 @@ def _layer_inputs(op, rng, pairing: str, dev):
         for n in range(N):
             frame[n, rng.choice(H * W * C, min(rung, H * W * C),
                                 replace=False)] = 1.0
-        xyc_t, gate_t, _ = frame_to_events(
+        xyc_t, gate_t, _ = route_frame(
             torch.from_numpy(frame.reshape(N, H, W, C)).to(dev),
             op.step_capacity)
     if spec.kind == "conv":
@@ -195,10 +217,7 @@ def _bound(op, v, w, xyc, gate, out_dtype):
     out_bytes = v.numel() * torch.empty((), dtype=out_dtype).element_size()
     nbytes = (v.numel() * v.element_size() + out_bytes + w_bytes
               + n_active * 3 * 4 + gate.numel() * gate.element_size())
-    ops = 2 * n_active * spec.updates_per_event()
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
+    return _bound_of(nbytes, 2 * n_active * spec.updates_per_event())
 
 
 def _library_call(op, w, xyc, gate):
@@ -336,11 +355,9 @@ def phase_kernels(program, dev) -> list:
 # ---------------------------------------------------------------------------
 
 def _capture_window(eng):
-    """Serve the engine's next window and return each layer's fused launch
-    on it (``layer_program.LayerWindow``): the arguments the engine gave
-    ``window_step`` are recorded and run once more through the lowering's
-    own layer loop, ``layer_program.fused_window_layers``."""
-    import torch
+    """Serve the engine's next window and return the arguments the engine
+    gave ``window_step`` for it: ``(params, states, (ev_xyc, ev_gate,
+    alive, pre_dt), program)``, copied before the step ran."""
     from repro_torch.core import layer_program as lp
     from repro_torch.serve import event_engine
     seen = []
@@ -357,21 +374,18 @@ def _capture_window(eng):
         event_engine.window_step = lp.window_step
     if len(seen) != 1:
         raise AssertionError(f"the window made {len(seen)} window_step calls")
-    params, states, window, program = seen[0]
-    return list(lp.fused_window_layers(params, states, *window,
-                                       program=program))
+    return seen[0]
 
 
-def _window_bound(op, v, w, xyc, gate, alive, tiles, acc_dtype):
-    """Least time for one window launch: bytes over the memory rate, or
-    operations over the float32 rate — the larger.  The bytes: the slab in
-    and out once, every gate, the liveness and the bitmap, T spike frames
-    written, and, of the schedule, only the coordinates of the gated
-    events on alive timesteps (they come first in each bucket; the padding
-    behind them is never needed), the weights too (fc: only the rows those
-    events name).  The operations: a multiply and an add per neuron update
-    of such an event, plus ``SWEEP_OPS`` per interior site of a hot tile
-    and alive timestep."""
+def _window_work(op, v, w, xyc, gate, alive, tiles, acc_dtype) -> dict:
+    """What one layer's window needs at least, by part (bytes, and the
+    operations under ``"ops"``): the slab in and out once, the weights
+    (fc: only the rows the gated events name), the coordinates of the
+    gated events on alive timesteps (they come first in each bucket; the
+    padding behind them is never needed), every gate, the liveness, the
+    bitmap and T spike frames written.  The operations: a multiply and an
+    add per neuron update of such an event, plus ``SWEEP_OPS`` per
+    interior site of a hot tile and alive timestep."""
     import torch
     from repro_torch.kernels.window_common import tile_grid, tiles_to_sites
     spec = op.spec
@@ -395,20 +409,34 @@ def _window_bound(op, v, w, xyc, gate, alive, tiles, acc_dtype):
         w_bytes = w.numel() * w.element_size()
     acc_size = torch.empty((), dtype=acc_dtype).element_size()
     N, T = alive.shape
-    nbytes = (2 * v.numel() * v.element_size() + w_bytes
-              + n_active * 3 * 4 + gate.numel() * acc_size
-              + alive.numel() * 4
-              + (0 if tiles is None else tiles.numel() * 4)
-              + N * T * Ho * Wo * C * acc_size)
-    ops = 2 * n_active * spec.updates_per_event() + SWEEP_OPS * sweep_sites
+    return {"slab": 2 * v.numel() * v.element_size(), "weights": w_bytes,
+            "events": n_active * 3 * 4, "gates": gate.numel() * acc_size,
+            "alive": alive.numel() * 4,
+            "tiles": 0 if tiles is None else tiles.numel() * 4,
+            "frames": N * T * Ho * Wo * C * acc_size,
+            "ops": (2 * n_active * spec.updates_per_event()
+                    + SWEEP_OPS * sweep_sites)}
+
+
+def _bound_of(nbytes: int, ops: int):
+    """(ms, what bounds it): bytes over the memory rate or operations over
+    the float32 rate, the larger."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_window_kernels(spec, qn, dev) -> list:
+def _window_bound(op, v, w, xyc, gate, alive, tiles, acc_dtype):
+    """Least time for one window launch (:func:`_window_work`, all of it)."""
+    work = _window_work(op, v, w, xyc, gate, alive, tiles, acc_dtype)
+    ops = work.pop("ops")
+    return _bound_of(sum(work.values()), ops)
+
+
+def phase_window_kernels(spec, qn, dev):
     """Every window kernel against its plain version on a real window of
-    the main path, both pairings, all-ones and sparse bitmaps, bitwise."""
+    the main path, both pairings, all-ones and sparse bitmaps, bitwise.
+    Returns the rows and, per pairing, the captured window."""
     import torch
     from repro_torch.core import layer_program as lp
     from repro_torch.core.policies import ExecutionPolicy
@@ -426,7 +454,7 @@ def phase_window_kernels(spec, qn, dev) -> list:
     fns = {"conv": (event_conv_window, event_conv_window_ref),
            "pool": (event_pool_window, event_pool_window_ref),
            "fc": (event_fc_window, event_fc_window_ref)}
-    rows = []
+    rows, captured = [], {}
     for dp, pairing in (("f32-carrier", "f32"), ("int8-native", "native")):
         eng = EventServeEngine(qn.spec, qn.params_for(dp), n_slots=N_SLOTS,
                                window=WINDOW, device=dev,
@@ -437,7 +465,11 @@ def phase_window_kernels(spec, qn, dev) -> list:
                 raise AssertionError("the cohort must fill the slots")
         for _ in range(WARM_WINDOWS):
             eng.step()
-        for lw, p in zip(_capture_window(eng), eng.params):
+        captured[pairing] = _capture_window(eng)
+        params, states, window, program = captured[pairing]
+        for lw, p in zip(lp.fused_window_layers(params, states, *window,
+                                                program=program),
+                         params):
             op, vp, xyc, gate, alive, tiles = lw[:6]
             spec_l = op.spec
             kind = spec_l.kind
@@ -530,6 +562,190 @@ def phase_window_kernels(spec, qn, dev) -> list:
                     f"{lib_txt}  bound {bound_ms:.5f} ms ({bound_by})  "
                     f"equal")
     torch.cuda.synchronize()
+    return rows, captured
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the fused-network megakernel and the fused LIF kernel
+# ---------------------------------------------------------------------------
+
+def _network_bound(layer_windows, launch, acc_dtype):
+    """Least time for one fused-network launch: of each layer's window
+    work (:func:`_window_work`, on the events the fused-window lowering
+    routes on the same window, which are the megakernel's) only what
+    crosses device memory: every slab in and out and the weights; layer
+    0's gated coordinates, gates and liveness; the bitmaps; the last
+    layer's frames; the counts and drops.  The bound assumes the routed
+    events and inner frames stay on chip: the current kernel moves each
+    routed event through its device-memory ring as one int32, written
+    once and read once, which this bound leaves out (a lower bound
+    still).  Every layer's operations."""
+    nbytes = ops = 0
+    L = len(layer_windows)
+    for l, lw in enumerate(layer_windows):
+        tiles = None if launch.tiles is None else launch.tiles[l]
+        work = _window_work(lw.op, launch.states[l], launch.weights[l],
+                            lw.xyc, lw.gate.to(acc_dtype), lw.alive, tiles,
+                            acc_dtype)
+        nbytes += work["slab"] + work["weights"] + work["tiles"]
+        ops += work["ops"]
+        if l == 0:
+            nbytes += work["events"] + work["gates"] + work["alive"]
+        if l == L - 1:
+            nbytes += work["frames"]
+    nbytes += 2 * launch.alive.shape[0] * L * 4
+    return _bound_of(nbytes, ops)
+
+
+def _equal_outputs(got, want, what: str) -> None:
+    """Every output of a fused-network launch equal, dtype included."""
+    import torch
+    for g, x in zip(got[0] + got[1:], want[0] + want[1:]):
+        if g.dtype != x.dtype or not torch.equal(g, x):
+            diff = (g.double() - x.double()).abs().max().item()
+            raise AssertionError(f"{what} (max |diff| {diff})")
+
+
+def phase_network_kernel(captured, dev) -> list:
+    """The megakernel against its plain version on the window phase 2b
+    captured, both pairings, the sparse bitmaps of the main path and
+    all-ones ones; beside the fused-window lowering on the same window
+    (which it must equal) and PyTorch's route."""
+    import torch
+    from repro_torch.core import layer_program as lp
+    from repro_torch.core.policies import ExecutionPolicy
+    from repro_torch.kernels.network_window import ref as nw_ref
+    from repro_torch.kernels.window_common import window_acc_dtype
+    rows = []
+    for pairing, (params, states, window, program) in captured.items():
+        net_prog = lp.compile_program(
+            program.spec, program.step_capacities, ExecutionPolicy(
+                dtype_policy=program.dtype_policy,
+                fusion_policy="fused-network",
+                tile_sparsity=program.tile_sparsity), device=dev)
+        if lp.effective_fusion(net_prog) != "fused-network":
+            raise AssertionError("Fig. 6 must fit the shared-memory budget")
+        launch = lp.network_launch(params, states, *window, program=net_prog)
+        acc = window_acc_dtype(states[0].dtype, launch.native)
+        fw = list(lp.fused_window_layers(params, states, *window,
+                                         program=program))
+        fw_out = (tuple(lw.vp_new for lw in fw), fw[-1].spikes,
+                  torch.stack([lw.gate.sum(dim=(1, 2)).to(torch.int32)
+                               for lw in fw], 1),
+                  torch.stack([lw.drops for lw in fw], 1))
+        for bm in ("sparse", "ones"):
+            run = launch if bm == "sparse" else launch._replace(
+                tiles=tuple(torch.ones_like(t) for t in launch.tiles))
+            kern = run.run
+            plain = partial(run.run, nw_ref.network_window_ref)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            _equal_outputs(got, want, f"network_window {pairing} {bm}: "
+                           f"kernel != plain")
+            _equal_outputs(got, fw_out, f"network_window {pairing} {bm}: "
+                           f"!= the fused-window lowering")
+            bound_ms, bound_by = _network_bound(fw, run, acc)
+            row = {"kernel": "network_window", "layer": "all",
+                   "pairing": pairing, "bitmap": bm,
+                   "N": launch.xyc.shape[0], "T": launch.xyc.shape[1],
+                   "E0": int(launch.xyc.shape[2]),
+                   "routed_events": [int((lw.gate != 0).sum()) for lw in fw],
+                   "hot_tiles": [int(t.sum()) for t in run.tiles],
+                   "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 1, 1),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "max_abs_err": 0.0, "library_ms": None,
+                   "fused_window_ms": None, "network_step_ms": None}
+            if pairing == "f32" and bm == "sparse":
+                cc = torch.zeros((launch.xyc.shape[0],
+                                  program.spec.n_classes), device=dev)
+                row["fused_window_ms"] = cuda_ms(partial(
+                    lp.window_step, params, states, cc, *window,
+                    program=program), 5)
+                row["network_step_ms"] = cuda_ms(partial(
+                    lp.window_step, params, states, cc, *window,
+                    program=net_prog), 5)
+                row["library_ms"] = _network_library_ms(run, program, params,
+                                                        got)
+            rows.append(row)
+            extra = ("" if row["library_ms"] is None else
+                     f"  library {row['library_ms']:.4f} ms  fused-window "
+                     f"lowering {row['fused_window_ms']:.4f} ms  fused-"
+                     f"network lowering {row['network_step_ms']:.4f} ms")
+            log(f"  network_window     {pairing:6s} {bm:6s} N={row['N']} "
+                f"T={row['T']} E0={row['E0']} routed {row['routed_events']}"
+                f" hot {row['hot_tiles']}  kernel {row['ms']:.4f} ms  plain "
+                f"{row['plain_ms']:.2f} ms{extra}  bound {bound_ms:.5f} ms "
+                f"({bound_by})  equal")
+    torch.cuda.synchronize()
+    return rows
+
+
+def _network_library_ms(run, program, params, got) -> float:
+    """PyTorch's route over the same window: the plain sequence with each
+    layer's scatter done by the library call of :func:`_library_call`
+    (checked against the kernel to float32 rounding); its mean ms."""
+    import torch
+    from repro_torch.kernels.network_window import ref as nw_ref
+    op_of = {p.w.data_ptr(): op for op, p in zip(program.ops, params)}
+
+    def lib_scatter(nl, w, acc, xyc, gate):
+        return _library_call(op_of[w.data_ptr()], w, xyc, gate)(acc)
+    plain_scatter = nw_ref._scatter
+    nw_ref._scatter = lib_scatter
+    try:
+        lib = partial(run.run, nw_ref.network_window_ref)
+        out = lib()
+        for g, x in zip(got[0] + got[1:], out[0] + out[1:]):
+            if not torch.allclose(g.double(), x.double(), rtol=LIB_RTOL,
+                                  atol=LIB_ATOL):
+                raise AssertionError("network_window: the library route "
+                                     "computes another function")
+        return cuda_ms(lib, 3)
+    finally:
+        nw_ref._scatter = plain_scatter
+
+
+def phase_lif_kernel(dev) -> list:
+    """The fused LIF kernel against its plain version (the torch
+    composition), bitwise, on the conv1 slab's shape and an odd size."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.lif import lif_fused, lif_fused_ref
+    rows = []
+    for shape in ((N_SLOTS, 40, 40, 16), (1000, 7)):
+        for dt in (0, 1, 5):
+            for clip in (None, 3.0):
+                rng = np.random.default_rng(dt + len(shape))
+                v = torch.from_numpy(rng.normal(size=shape).astype(
+                    np.float32) * 2).to(dev)
+                syn = torch.from_numpy(rng.normal(size=shape).astype(
+                    np.float32)).to(dev)
+                args = (v, syn, torch.tensor(float(dt), device=dev), 0.1,
+                        0.9, clip)
+                kern = partial(lif_fused, *args)
+                plain = partial(lif_fused_ref, *args)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                for g, x in zip(got, want):
+                    if not torch.equal(g, x):
+                        raise AssertionError(f"lif_fused {shape} dt={dt} "
+                                             f"clip={clip}: kernel != plain")
+                # v and syn read, v_next and spikes written, dt read;
+                # about ten operations an element
+                bound_ms, bound_by = _bound_of(16 * v.numel() + 4,
+                                               10 * v.numel())
+                row = {"kernel": "lif_fused", "pairing": "f32",
+                       "shape": list(shape), "dt": dt, "clip": clip,
+                       "main": shape[1:] == (40, 40, 16) and dt == 1
+                       and clip is None,
+                       "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 20),
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": 0.0, "library_ms": None}
+                rows.append(row)
+                log(f"  lif_fused {str(tuple(shape)):18s} dt={dt} clip="
+                    f"{clip}  kernel {row['ms']:.4f} ms  plain (torch ops) "
+                    f"{row['plain_ms']:.4f} ms  bound {bound_ms:.5f} ms "
+                    f"({bound_by})  equal")
     return rows
 
 
@@ -593,10 +809,12 @@ def assert_same(a: dict, b: dict, what: str) -> None:
 
 def _policies(dp: str):
     """The lowerings every serving phase runs: the default fused-window
-    (the main path), fused-window without tile sparsity, and per-step."""
+    (the main path), fused-window without tile sparsity, fused-network and
+    per-step."""
     from repro_torch.core.policies import ExecutionPolicy
     return (ExecutionPolicy(dtype_policy=dp),
             ExecutionPolicy(dtype_policy=dp, tile_sparsity=False),
+            ExecutionPolicy(dtype_policy=dp, fusion_policy="fused-network"),
             ExecutionPolicy(dtype_policy=dp, fusion_policy="per-step"))
 
 
@@ -647,10 +865,13 @@ def _cohort(spec, rate_hz: float, seed0: int, n: int, T: int):
 
 
 def phase_full_width(spec, qn, dev, smi: str) -> dict:
-    """The main path: full-width Fig. 6 serving, fused-window (the default)
-    and per-step, both dtype policies, every request bitwise equal."""
+    """The main path: full-width Fig. 6 serving under every lowering
+    (fused-window, the default; fused-network; per-step), both dtype
+    policies, every request bitwise equal."""
+    import warnings
     import numpy as np
     import torch
+    from repro_torch.core import layer_program as lp
     from repro_torch.core.policies import ExecutionPolicy
     from repro_torch.core.quant import quantize_net
     from repro_torch.core.sne_net import dvs_gesture_net, init_snn
@@ -659,18 +880,21 @@ def phase_full_width(spec, qn, dev, smi: str) -> dict:
     H, W, C = spec.in_shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    outputs, report, launches = {}, [], {}
-    for fusion in ("fused-window", "per-step"):
+    outputs, report, launches, plans = {}, [], {}, {}
+    for fusion in LOWERINGS:
         reset_launch_counts()      # each lowering's run is read on its own
         for dp in ("f32-carrier", "int8-native"):
             for ci, (label, rate) in enumerate(COHORTS):
                 reqs = _cohort(spec, rate, 100 * ci, N_SLOTS, T)
                 before = dict(LAUNCHES)
                 win_ms = []
-                reqs, eng, wall = serve(
-                    qn, reqs, ExecutionPolicy(dtype_policy=dp,
-                                              fusion_policy=fusion),
-                    N_SLOTS, dev, win_ms)
+                with warnings.catch_warnings():
+                    if fusion == "fused-network":
+                        warnings.simplefilter("error")   # no fallback
+                    reqs, eng, wall = serve(
+                        qn, reqs, ExecutionPolicy(dtype_policy=dp,
+                                                  fusion_policy=fusion),
+                        N_SLOTS, dev, win_ms)
                 res = results(reqs)
                 outputs[(fusion, dp, label)] = res
                 n_in = sum(float(r.telemetry.per_layer_events[0])
@@ -700,22 +924,44 @@ def phase_full_width(spec, qn, dev, smi: str) -> dict:
                 if counts.shape != (len(reqs), spec.n_classes) or \
                         not np.isfinite(counts).all():
                     raise AssertionError(f"bad class counts {counts.shape}")
+                if fusion == "fused-network":
+                    # one launch per window, of the megakernel alone
+                    net = LAUNCHES["network_window"] - before["network_window"]
+                    if not (lp.effective_fusion(eng.program) == fusion
+                            and n_launch == net == len(win_ms)
+                            == eng.stats["step_calls"]
+                            == eng.stats["kernel_launches"]):
+                        raise AssertionError(
+                            f"fused-network {dp} {label}: {n_launch} launches "
+                            f"({net} network_window) over {len(win_ms)} "
+                            f"windows, {eng.stats['step_calls']} step calls")
+                    plan = lp.network_window_plan(eng.program)
+                    plans[dp] = {
+                        "smem_bytes": plan.smem_bytes,
+                        "smem_budget": lp.SMEM_BUDGET,
+                        **dataclasses.asdict(plan)}
         torch.cuda.synchronize()
         launches[fusion] = dict(LAUNCHES)
         log(f"  launches on the {fusion} path: {launches[fusion]}")
     peak = torch.cuda.max_memory_allocated(dev)
     log(f"  peak device memory {peak / 2**20:.1f} MiB [{smi}]")
+    log(f"  fused-network plan per slot: {plans}")
     for key, res in outputs.items():
         oracle = outputs[("per-step", "f32-carrier", key[2])]
         assert_same(res, oracle, f"{key} vs per-step f32-carrier")
-    log("  fused-window and per-step, f32-carrier and int8-native agree "
-        "bitwise on every request")
+    log("  fused-window, fused-network and per-step, f32-carrier and "
+        "int8-native agree bitwise on every request")
     missing = [k for k in LAUNCHES
-               if launches["fused-window" if k.endswith("_window")
-                           else "per-step"][k] == 0]
+               if PATH_OF[k] and launches[PATH_OF[k]][k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on their path: "
                              f"{missing}")
+    # a kernel of no serving path must not have launched under any lowering
+    stray = {k: [launches[f][k] for f in LOWERINGS] for k in LAUNCHES
+             if PATH_OF[k] is None and any(launches[f][k] for f in LOWERINGS)}
+    if stray:
+        raise AssertionError(f"kernels of no serving path launched while "
+                             f"serving (per lowering {LOWERINGS}): {stray}")
     # the same path cut to T = 8, served by the card and by the plain CPU
     # path, must agree bitwise
     short = dvs_gesture_net(n_timesteps=8)
@@ -724,19 +970,19 @@ def phase_full_width(spec, qn, dev, smi: str) -> dict:
     qc = quantize_net(init_snn(np.random.default_rng(0), short,
                                device="cpu"), short)
     for dp in ("f32-carrier", "int8-native"):
-        for fusion in ("fused-window", "per-step"):
+        for fusion in LOWERINGS:
             pol = ExecutionPolicy(dtype_policy=dp, fusion_policy=fusion)
             got = results(serve(qs, _cohort(short, 2e6, 7, 2, 8), pol, 2,
                                 dev)[0])
             want = results(serve(qc, _cohort(short, 2e6, 7, 2, 8), pol, 2,
                                  torch.device("cpu"))[0])
             assert_same(got, want, f"full width T=8 {pol}: card vs plain CPU")
-    log("  full width, T = 8: card equals the plain CPU path, both "
-        "lowerings, both policies")
-    return {"launches": launches, "serving": report,
+    log("  full width, T = 8: card equals the plain CPU path, every "
+        "lowering, both policies")
+    return {"launches": launches, "serving": report, "plans": plans,
             "peak_device_memory_bytes": peak,
             "trace": {fusion: trace_cohort(spec, qn, dev, smi, fusion)
-                      for fusion in ("fused-window", "per-step")}}
+                      for fusion in LOWERINGS}}
 
 
 def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
@@ -774,10 +1020,12 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
 
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
-    the window kernels with the sparse bitmap the main path gives them),
-    summed over the layers of its kind."""
-    main = [r for r in mine if r["pairing"] == "f32"
-            and r.get("bitmap", "sparse") in ("sparse", "none")]
+    the window kernels and the megakernel with the sparse bitmaps the main
+    path gives them; the LIF kernel on the conv1 slab's shape, dt = 1, no
+    clip), summed over the layers of its kind."""
+    main = [r for r in mine if r.get("main", r["pairing"] == "f32"
+                                     and r.get("bitmap", "sparse")
+                                     in ("sparse", "none"))]
     lib = [r["library_ms"] for r in main]
     return {
         "name": name, "route": "cuda", "source": SOURCES[name],
@@ -789,7 +1037,7 @@ def _kernel_entry(name, mine, launches):
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main)
         else "operations",
         "library_ms": None if None in lib else sum(lib),
-        "layers": [r["layer"] for r in main],
+        "layers": [r.get("layer") for r in main],
         "per_shape": mine,
     }
 
@@ -837,7 +1085,12 @@ def main() -> int:
     rows = phase_kernels(compile_program(qn.spec, device=dev), dev)
     log("phase 2b: window kernels against their plain versions on a real "
         "window of the main path")
-    rows += phase_window_kernels(spec, qn, dev)
+    rows_b, captured = phase_window_kernels(spec, qn, dev)
+    rows += rows_b
+    log("phase 2c: the fused-network megakernel on the same window, and the "
+        "fused LIF kernel")
+    rows += phase_network_kernel(captured, dev)
+    rows += phase_lif_kernel(dev)
 
     log("phase 3: trained checkpoint against the golden")
     phase_golden(dev)
@@ -845,11 +1098,15 @@ def main() -> int:
     log("phase 4: full-width Fig. 6 serving (the main path)")
     main_path = phase_full_width(spec, qn, dev, smi)
 
-    launches = {k: main_path["launches"]["fused-window" if k.endswith(
-        "_window") else "per-step"][k] for k in REPLACES}
+    # a kernel of no serving path reports its count summed over every
+    # lowering's run (phase 4 holds it at 0)
+    launches = {k: main_path["launches"][PATH_OF[k]][k] if PATH_OF[k]
+                else sum(main_path["launches"][f][k] for f in LOWERINGS)
+                for k in REPLACES}
     kernels = [_kernel_entry(name, [r for r in rows if r["kernel"] == name],
                              launches) for name in REPLACES]
     summary = {"serving": main_path["serving"],
+               "fused_network_plan": main_path["plans"],
                "peak_device_memory_bytes":
                    main_path["peak_device_memory_bytes"],
                "trace": main_path["trace"], "build_s": secs,

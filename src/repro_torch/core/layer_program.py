@@ -1,10 +1,10 @@
 """The layer-program executor: one event-domain network step.
 
-Counterpart of ``repro.core.layer_program`` for the per-step and the
-fused-window lowerings.  :func:`compile_program` lowers an ``SNNSpec``
-into a :class:`LayerProgram` (a typed sequence of :class:`LayerOp`), and
-:func:`window_step` advances every serving slot through one window of
-timesteps.  The program's fusion policy picks the lowering:
+Counterpart of ``repro.core.layer_program``.  :func:`compile_program`
+lowers an ``SNNSpec`` into a :class:`LayerProgram` (a typed sequence of
+:class:`LayerOp`), and :func:`window_step` advances every serving slot
+through one window of timesteps.  The program's fusion policy picks the
+lowering:
 
 * ``"per-step"`` — per timestep, layer by layer, ``leak -> scatter ->
   clip -> fire -> reset``, each layer's scatter one slot-batched CUDA
@@ -14,8 +14,11 @@ timesteps.  The program's fusion policy picks the lowering:
   whole window in ONE fused launch (the ``*_window`` kernels, tile
   sparsity included; L launches per window), with every timestep's FIRE
   frames routed at once.  Bitwise the per-step results.
-
-``"fused-network"`` is not ported yet and is refused at compile time.
+* ``"fused-network"`` — the whole program over the whole window in ONE
+  launch (`kernels/network_window`): every layer's membrane in one
+  block's shared memory, spikes routed between layers inside the kernel.
+  Bitwise the per-step results; a program whose slot does not fit
+  :data:`SMEM_BUDGET` warns and runs fused-window (:func:`effective_fusion`).
 
 Two dtype policies, as in the reference: ``"f32-carrier"`` (integers in
 float32; also runs float nets) and ``"int8-native"`` (int8 codes and
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import (TYPE_CHECKING, Iterator, NamedTuple, Optional,
                     Sequence, Tuple)
 
@@ -40,8 +44,8 @@ from repro_torch.core.lif import (LifParams, apply_leak, fire_and_reset,
                                   idle_decay, supports_idle_skip)
 from repro_torch.core.policies import (DTYPE_POLICIES, F32_CARRIER,
                                        FUSED_NETWORK, FUSED_WINDOW,
-                                       INT8_NATIVE, PER_STEP,
-                                       ExecutionPolicy)
+                                       FUSION_POLICIES, INT8_NATIVE,
+                                       PER_STEP, ExecutionPolicy)
 from repro_torch.core.quant import INT8_MAX, INT8_MIN
 from repro_torch.device import resolve_device
 from repro_torch.kernels.event_conv.ops import (event_conv_batched,
@@ -49,19 +53,16 @@ from repro_torch.kernels.event_conv.ops import (event_conv_batched,
 from repro_torch.kernels.event_fc.ops import event_fc_batched, event_fc_window
 from repro_torch.kernels.event_pool.ops import (event_pool_batched,
                                                 event_pool_window)
+from repro_torch.kernels.network_window import (SMEM_BUDGET, NetLayer,
+                                                network_window, smem_layout)
 from repro_torch.kernels.window_common import (crop_interior, dilate_conv,
-                                               dilate_pool, seed_site_map,
-                                               sites_to_tiles, tile_grid,
-                                               tiles_to_sites, write_cropped)
+                                               dilate_pool, route_frame,
+                                               seed_site_map, sites_to_tiles,
+                                               tile_grid, tiles_to_sites,
+                                               write_cropped)
 
 if TYPE_CHECKING:  # pragma: no cover - annotation only
     from repro_torch.core.sne_net import SNNSpec
-
-# the lowering still to port, and the ROADMAP item that ports it
-_NOT_PORTED = {
-    FUSED_NETWORK: "ROADMAP Queue A item 5 (the fused-network lowering)",
-}
-
 
 # ---------------------------------------------------------------------------
 # Capacity heuristics — the reference's single source, copied.
@@ -184,8 +185,7 @@ def compile_program(spec: "SNNSpec",
 
     ``policy`` defaults to the per-step lowering on the float32 carrier
     (the reference's default here); its dtype policy, fusion policy and
-    tile sparsity are compiled in.  ``"fused-network"`` raises
-    ``NotImplementedError`` (not ported yet).  ``device`` (default: CUDA)
+    tile sparsity are compiled in.  ``device`` (default: CUDA)
     is where the program serves; asking for CUDA without a card raises.
     Equal calls share one cached program.
     """
@@ -194,11 +194,6 @@ def compile_program(spec: "SNNSpec",
     if not isinstance(pol, ExecutionPolicy):
         raise TypeError(f"policy must be an ExecutionPolicy, got "
                         f"{type(pol).__name__}")
-    if pol.fusion_policy in _NOT_PORTED:
-        raise NotImplementedError(
-            f"fusion policy {pol.fusion_policy!r} is not ported to the "
-            f"PyTorch/CUDA package yet: {_NOT_PORTED[pol.fusion_policy]}; "
-            f"use ExecutionPolicy(fusion_policy='per-step')")
     dev = resolve_device(device)
     caps = None if step_capacities is None else tuple(step_capacities)
     return _compile_cached(spec, caps, pol.dtype_policy, pol.fusion_policy,
@@ -215,6 +210,9 @@ def _compile_cached(spec: "SNNSpec", step_capacities, dtype_policy: str,
     if dtype_policy not in DTYPE_POLICIES:
         raise ValueError(f"unknown dtype policy {dtype_policy!r} "
                          f"(expected one of {DTYPE_POLICIES})")
+    if fusion_policy not in FUSION_POLICIES:
+        raise ValueError(f"unknown fusion policy {fusion_policy!r} "
+                         f"(expected one of {FUSION_POLICIES})")
     ops = []
     for i, l in enumerate(spec.layers):
         validate_policy_layer(l, i, dtype_policy)
@@ -331,30 +329,6 @@ def layer_timestep(op: LayerOp, params: EConvParams, vp: torch.Tensor,
     return torch.where(m, vp_new, vp), s
 
 
-def frame_to_events(s: torch.Tensor, cap: int):
-    """Slot-batched dense spike frames -> padded event lists (routing).
-
-    ``s`` (N, H, W, C) binary frames.  Returns ``(xyc (N, cap, 3) int32,
-    gate (N, cap) in s.dtype, n_drop (N,) int32)``: the first ``cap``
-    nonzero sites of each slot in row-major order, padding clamped to the
-    last site with gate 0, and the overflow past ``cap`` counted.
-    """
-    N, H, W, C = s.shape
-    S = H * W * C
-    cap = min(cap, S)
-    nz = s.reshape(N, S) != 0
-    idx = torch.arange(S, device=s.device, dtype=torch.int64)
-    key = torch.where(nz, idx, torch.full_like(idx, S))
-    order = torch.topk(key, cap, dim=1, largest=False, sorted=True).values
-    gate = (order < S).to(s.dtype)
-    order = torch.clamp(order, max=S - 1)
-    xyc = torch.stack([order // (W * C), (order // C) % W, order % C],
-                      dim=-1).to(torch.int32)
-    n = nz.sum(dim=1, dtype=torch.int32)
-    n_drop = torch.clamp(n - cap, min=0)
-    return xyc, gate, n_drop
-
-
 def apply_idle_decay(states, dt: torch.Tensor, *, program: LayerProgram):
     """Apply each slot's deferred idle decay to every layer's interior.
 
@@ -428,8 +402,8 @@ def layer_window(op: LayerOp, params: EConvParams, vp: torch.Tensor,
     equal to them (membranes and every timestep's spike frame) under both
     dtype policies.  Unlike the reference, which takes time-major
     schedules and transposes them for its kernels, the port passes every
-    schedule slot-major: the kernels and :func:`frame_to_events` both
-    work on it, so no transpose runs between layers.
+    schedule slot-major: the kernels and :func:`window_common.route_frame`
+    both work on it, so no transpose runs between layers.
 
     Args:
       vp:    (N, Hp, Wp, C) membrane slab in the op's storage dtype.
@@ -483,11 +457,11 @@ def fused_window_layers(params: Sequence[EConvParams], states, ev_xyc,
 
     Layer-major: layer *l* at timestep *t* needs only layer *l-1*'s frame
     at *t* and its own state, so each layer runs its whole window in one
-    :func:`layer_window` launch, and :func:`frame_to_events` routes all
-    ``N×T`` of its frames in one call (each frame alone, so the events and
-    drops are those of T separate calls).
+    :func:`layer_window` launch, and :func:`window_common.route_frame`
+    routes all ``N×T`` of its frames in one call (each frame alone, so the
+    events and drops are those of T separate calls).
     """
-    N, T = ev_xyc.shape[1], ev_xyc.shape[0]
+    N = ev_xyc.shape[1]
     states = apply_idle_decay(states, pre_dt, program=program)
     tiles = (window_tile_maps(program, ev_xyc, ev_gate)
              if effective_tile_sparsity(program) else None)
@@ -498,11 +472,8 @@ def fused_window_layers(params: Sequence[EConvParams], states, ev_xyc,
     s = None
     for op, p, vp in zip(program.ops, params, states):
         if op.index > 0:
-            xyc, gate, n_drop = frame_to_events(s.reshape(N * T, *s.shape[2:]),
-                                                op.step_capacity)
-            xyc = xyc.reshape(N, T, -1, 3)
-            gate = gate.reshape(N, T, -1)
-            drops = n_drop.reshape(N, T).sum(dim=1, dtype=torch.int32)
+            xyc, gate, n_drop = route_frame(s, op.step_capacity)
+            drops = n_drop.sum(dim=1, dtype=torch.int32)
         t_l = None if tiles is None else tiles[op.index]
         vp_new, s = layer_window(op, p, vp, xyc, gate, alive, tiles=t_l)
         yield LayerWindow(op, vp, xyc, gate, alive, t_l, vp_new, s, drops)
@@ -523,16 +494,202 @@ def _window_step_fused(params: Sequence[EConvParams], states, class_counts,
     return tuple(lw.vp_new for lw in layers), class_counts, counts, drops
 
 
+# ---------------------------------------------------------------------------
+# The fused-network lowering: the whole program in ONE launch per window.
+# ---------------------------------------------------------------------------
+
+def _slab_elems(op: LayerOp) -> int:
+    """Elements of one slot's halo-padded membrane slab."""
+    Ho, Wo, Co = op.spec.out_shape
+    h = op.halo
+    return (Ho + 2 * h) * (Wo + 2 * h) * Co
+
+
+def _ring_capacity(program: LayerProgram, index: int) -> int:
+    """Events the boundary into layer ``index`` (>= 1) can carry: the
+    consumer's per-timestep capacity clamped to the producer's frame size,
+    as :func:`window_common.route_frame` clamps it."""
+    h, w, c = program.ops[index - 1].spec.out_shape
+    return min(program.ops[index].step_capacity, h * w * c)
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkWindowPlan:
+    """What one block of the fused-network kernel holds for its slot.
+
+    Shared memory (``smem_bytes``, the sum of the first five fields; the
+    layout is `kernels.network_window.smem_layout`, the one the launch
+    uses): every layer's accumulator slab, the conv and pool weights, the
+    tile bitmaps, one routed frame at one bit per site, and the event
+    stage with the scan scratch.  Device memory besides the slabs and
+    weights: ``ring_bytes``, the slot's ring of routed events (one int32
+    per event, as wide as the widest boundary).
+    """
+
+    membrane_bytes: int
+    weight_bytes: int
+    tile_bytes: int
+    frame_bytes: int
+    stage_bytes: int
+    ring_bytes: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """One block's shared memory: what must fit the budget."""
+        return (self.membrane_bytes + self.weight_bytes + self.tile_bytes
+                + self.frame_bytes + self.stage_bytes)
+
+
+@functools.lru_cache(maxsize=64)
+def network_window_plan(program: LayerProgram) -> NetworkWindowPlan:
+    """Price one slot of the fused-network kernel on the card.
+
+    Counterpart of the reference's plan, re-derived for Hopper: the
+    reference prices a TPU grid step's VMEM, schedule and I/O blocks
+    included; here only what one block keeps in shared memory counts
+    against the budget (the schedule, the fc matrices, the last layer's
+    frames and the ring stay in device memory), and nothing depends on
+    the window's length.
+    """
+    ops = program.ops
+    w_isz = torch.empty((), dtype=scatter_dtypes(ops[0])[2]).element_size()
+    weights = []
+    for op in ops:
+        spec = op.spec
+        if spec.kind == "conv":
+            weights.append(spec.kernel ** 2 * spec.in_shape[2]
+                           * spec.out_channels)
+        else:       # pool: one weight per channel; fc: in device memory
+            weights.append(spec.in_shape[2] if spec.kind == "pool" else 0)
+    lay = smem_layout([_slab_elems(op) for op in ops], weights,
+                      [h * w * c for h, w, c in
+                       (op.spec.out_shape for op in ops)], w_isz)
+    ring = max((_ring_capacity(program, i) for i in range(1, len(ops))),
+               default=1)
+    return NetworkWindowPlan(
+        membrane_bytes=lay.membrane_bytes, weight_bytes=lay.weight_bytes,
+        tile_bytes=lay.tile_bytes, frame_bytes=lay.frame_bytes,
+        stage_bytes=lay.stage_bytes, ring_bytes=4 * ring)
+
+
+def effective_fusion(program: LayerProgram) -> str:
+    """The lowering :func:`window_step` really runs for ``program``.
+
+    ``"fused-network"`` becomes ``"fused-window"`` when one slot's
+    :func:`network_window_plan` does not fit :data:`SMEM_BUDGET` (the
+    H100's).  :func:`window_step` and the engine's launch accounting both
+    ask this one predicate.
+    """
+    if program.fusion_policy != FUSED_NETWORK:
+        return program.fusion_policy
+    return (FUSED_NETWORK if network_window_plan(program).smem_bytes
+            <= SMEM_BUDGET else FUSED_WINDOW)
+
+
+@functools.lru_cache(maxsize=64)
+def _net_layers(program: LayerProgram) -> Tuple[NetLayer, ...]:
+    """Lower the program's ops into the megakernel's static layer plans."""
+    out = []
+    for op in program.ops:
+        spec = op.spec
+        out.append(NetLayer(
+            kind=spec.kind, lif=op.lif, halo=op.halo,
+            cap=(op.step_capacity if op.index == 0
+                 else _ring_capacity(program, op.index)),
+            padding=spec.padding if spec.kind == "conv" else 0,
+            stride=spec.stride if spec.kind == "pool" else 1,
+            in_shape=spec.in_shape))
+    return tuple(out)
+
+
+class NetworkLaunch(NamedTuple):
+    """The one fused-network launch of a window: the arguments
+    :func:`_window_step_network` hands `kernels.network_window`
+    (:func:`network_launch`).  Schedules are slot-major."""
+    states: Tuple[torch.Tensor, ...]     # slabs after the deferred decay
+    weights: Tuple[torch.Tensor, ...]
+    xyc: torch.Tensor                    # (N, T, E0, 3); conv: halo coords
+    gate: torch.Tensor                   # (N, T, E0)
+    alive: torch.Tensor                  # (N, T)
+    layers: Tuple[NetLayer, ...]
+    native: bool
+    tiles: Optional[Tuple[torch.Tensor, ...]]
+
+    def run(self, fn=network_window):
+        """Launch it (or hand it to ``fn``, e.g. the plain version)."""
+        return fn(self.states, self.weights, self.xyc, self.gate,
+                  self.alive, layers=self.layers, native=self.native,
+                  tiles=self.tiles)
+
+
+def network_launch(params: Sequence[EConvParams], states, ev_xyc, ev_gate,
+                   alive, pre_dt, *, program: LayerProgram) -> NetworkLaunch:
+    """The fused-network launch of one window (arguments as
+    :func:`window_step`'s): the deferred idle decay applied, the tile
+    bitmaps built from the collector's events, the schedule slot-major
+    and a conv first layer's events in halo coordinates."""
+    states = apply_idle_decay(states, pre_dt, program=program)
+    tiles = (window_tile_maps(program, ev_xyc, ev_gate)
+             if effective_tile_sparsity(program) else None)
+    xyc = ev_xyc.transpose(0, 1)
+    op0 = program.ops[0]
+    if op0.kind == "conv":
+        xyc = xyc + torch.tensor([op0.spec.padding, op0.spec.padding, 0],
+                                 dtype=torch.int32, device=xyc.device)
+    return NetworkLaunch(
+        tuple(states), tuple(p.w for p in params), xyc.contiguous(),
+        ev_gate.transpose(0, 1).contiguous(),
+        alive.transpose(0, 1).contiguous(), _net_layers(program),
+        program.dtype_policy == INT8_NATIVE, tiles)
+
+
+def _window_step_network(params: Sequence[EConvParams], states, class_counts,
+                         ev_xyc, ev_gate, alive, pre_dt, *,
+                         program: LayerProgram):
+    """The fused-network lowering behind :func:`window_step` (ONE launch).
+
+    Every layer over every timestep of the window in one
+    `kernels.network_window` launch (:func:`network_launch`); only the
+    last layer's frames and the per-layer counters leave it.  Bitwise the
+    fused-window lowering's results.  When one slot's plan does not fit
+    the budget, warns with the sizing and runs the fused-window lowering
+    instead (L launches; the engine's launch accounting follows
+    :func:`effective_fusion`).
+    """
+    if effective_fusion(program) != FUSED_NETWORK:
+        plan = network_window_plan(program)
+        warnings.warn(
+            f"fused-network window needs {plan.smem_bytes} bytes of shared "
+            f"memory per block (membranes {plan.membrane_bytes} + weights "
+            f"{plan.weight_bytes} + tile bitmaps {plan.tile_bytes} + routed "
+            f"frame {plan.frame_bytes} + event stage {plan.stage_bytes}) > "
+            f"budget {SMEM_BUDGET}; falling back to the fused-window lowering "
+            f"({len(program.ops)} launches per window)")
+        return _window_step_fused(params, states, class_counts, ev_xyc,
+                                  ev_gate, alive, pre_dt, program=program)
+    v_out, s_last, counts, drops = network_launch(
+        params, states, ev_xyc, ev_gate, alive, pre_dt,
+        program=program).run()
+    # the counters leave the kernel as exact int32; the (L, N) float32
+    # counts are an exact cast (values < 2^24)
+    class_counts = class_counts + s_last.sum(dim=(1, 2, 3)).to(torch.float32)
+    return v_out, class_counts, counts.T.to(torch.float32), drops.T
+
+
 def window_step(params: Sequence[EConvParams], states, class_counts,
                 ev_xyc, ev_gate, alive, pre_dt, *, program: LayerProgram):
     """Advance every slot through one window of timesteps.
 
     The program's fusion policy picks the lowering: ``"per-step"`` runs
     the chain per timestep, each layer one slot-batched scatter launch
-    (L×T launches), with :func:`frame_to_events` routing each FIRE frame
-    into the next layer's event bucket on the device; ``"fused-window"``
-    runs each layer's whole window in one launch (:func:`layer_window`,
-    :func:`_window_step_fused`; L launches).  Both give the same bits.
+    (L×T launches), with :func:`window_common.route_frame` routing each
+    FIRE frame into the next layer's event bucket on the device;
+    ``"fused-window"`` runs each layer's whole window in one launch
+    (:func:`layer_window`, :func:`_window_step_fused`; L launches);
+    ``"fused-network"`` runs the whole window of the whole program in one
+    launch (:func:`_window_step_network`), or fused-window when one slot
+    does not fit :data:`SMEM_BUDGET` (:func:`effective_fusion`).  All three
+    give the same bits.
 
     Args:
       states:       per-layer membrane slabs, each (N, Hp, Wp, C).
@@ -545,13 +702,14 @@ def window_step(params: Sequence[EConvParams], states, class_counts,
     Returns new states, class_counts, per-layer per-slot consumed-event
     counts (L, N) float32 and inter-layer overflow drops (L, N) int32.
     """
-    if program.fusion_policy in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[program.fusion_policy])
     if str(class_counts.device) != program.device:
         raise ValueError(f"the program serves on {program.device}, the "
                          f"state lives on {class_counts.device}")
     for op, p in zip(program.ops, params):
         check_native_weights(op, p)
+    if program.fusion_policy == FUSED_NETWORK:
+        return _window_step_network(params, states, class_counts, ev_xyc,
+                                    ev_gate, alive, pre_dt, program=program)
     if program.fusion_policy == FUSED_WINDOW:
         return _window_step_fused(params, states, class_counts, ev_xyc,
                                   ev_gate, alive, pre_dt, program=program)
@@ -566,7 +724,7 @@ def window_step(params: Sequence[EConvParams], states, class_counts,
         s = None
         for op, p in zip(program.ops, params):
             if op.index > 0:
-                xyc, gate, n_drop = frame_to_events(s, op.step_capacity)
+                xyc, gate, n_drop = route_frame(s, op.step_capacity)
                 drops[op.index] += n_drop
             counts[op.index] += gate.sum(dim=1).to(torch.float32)
             states[op.index], s = layer_timestep(op, p, states[op.index],

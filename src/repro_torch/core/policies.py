@@ -7,10 +7,8 @@ and the same default, validated where the policy is written.
   exactness oracle) or ``"int8-native"`` (int8 codes and storage, int32
   accumulation).
 * **fusion policy** — ``"per-step"`` (one scatter launch per layer per
-  timestep; the bitwise oracle and the only lowering ported so far),
-  ``"fused-window"`` or ``"fused-network"`` (named here so a policy value
-  round-trips, rejected by `core.layer_program.compile_program` until their
-  kernels are ported).
+  timestep; the bitwise oracle), ``"fused-window"`` (one launch per layer
+  per window) or ``"fused-network"`` (one launch per window).
 * **backend** — ``"local"`` (one device) or ``"mesh"`` (not ported yet).
 
 Plus the serving-time toggles ``idle_skip`` and ``tile_sparsity``.
@@ -39,8 +37,7 @@ class ExecutionPolicy:
     """One frozen value naming every execution-policy axis.
 
     Defaults match the reference's production configuration (float32
-    carrier, fused windows, idle skip on, local backend); callers of this
-    slice of the port select ``fusion_policy="per-step"`` explicitly.
+    carrier, fused windows, idle skip on, local backend).
     """
 
     dtype_policy: str = F32_CARRIER

@@ -41,6 +41,10 @@ _SIGNATURES = {
                           [_P] * 9 + [_I] * 13 + _LIF + [_P]),
     "event_fc_window": ("sne_event_fc_window",
                         [_P] * 7 + [_I] * 8 + _LIF + [_P]),
+    # host arrays (layer descriptors, LIF floats, pointers), then as named
+    "network_window": ("sne_network_window",
+                       [_P] * 3 + [_I] + [_P] * 7 + [_I] * 11 + [_P]),
+    "lif_fused": ("sne_lif_fused", [_P] * 5 + [_I] + [_F] * 3 + [_I, _P]),
 }
 
 _lock = threading.Lock()

@@ -16,7 +16,9 @@ LAUNCHES: Dict[str, int] = {"event_conv_batched": 0,
                             "event_fc_batched": 0,
                             "event_conv_window": 0,
                             "event_pool_window": 0,
-                            "event_fc_window": 0}
+                            "event_fc_window": 0,
+                            "network_window": 0,
+                            "lif_fused": 0}
 
 # (slab in, weights, gate, accumulator out) -> pairing code of the kernels;
 # the rows of `core.layer_program.scatter_dtypes`

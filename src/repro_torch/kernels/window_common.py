@@ -1,9 +1,8 @@
-"""What the three fused ``*_window`` kernels share: the LIF boundary
-sequence, the halo crop, the tile activity bitmaps and the plain window
-sequence.
+"""What the fused window kernels share: the LIF boundary sequence, the
+halo crop, the routing of a spike frame into an event list, the tile
+activity bitmaps and the plain window sequence.
 
-Counterpart of ``repro.kernels.window_common`` (``route_frame`` belongs to
-the fused-network slice and is not here).  A fused window runs the whole
+Counterpart of ``repro.kernels.window_common``.  A fused window runs the whole
 ``leak -> scatter -> clip -> fire -> reset`` chain for every timestep of a
 serving window in ONE launch per layer; its boundary arithmetic must stay
 bitwise the per-step executor's, so :func:`leak_boundary` and
@@ -80,6 +79,36 @@ def saturate_int8(v: torch.Tensor) -> torch.Tensor:
     """int8 storage saturation expressed in the accumulator dtype (the
     per-step executor's whole-slab downcast, round trip included)."""
     return torch.clamp(v, INT8_MIN, INT8_MAX)
+
+
+def route_frame(s: torch.Tensor, cap: int):
+    """Dense spike frames -> padded event lists (the routing between two
+    layers).
+
+    ``s`` is ``(..., H, W, C)``: one frame, or a batch of them along the
+    leading axes.  Each frame keeps its first ``cap' = min(cap, H*W*C)``
+    nonzero sites in row-major ``(x, y, c)`` order; padding gets gate 0
+    and the coordinates of the last site; the overflow past ``cap'`` is
+    counted.  Bitwise the reference's ``route_frame`` (one frame) and
+    ``frame_to_events`` (a batch).
+
+    Returns ``(xyc (..., cap', 3) int32, gate (..., cap') in s.dtype,
+    n_drop (...) int32)``.
+    """
+    H, W, C = s.shape[-3:]
+    S = H * W * C
+    cap = min(cap, S)
+    nz = s.reshape(*s.shape[:-3], S) != 0
+    idx = torch.arange(S, device=s.device, dtype=torch.int64)
+    key = torch.where(nz, idx, torch.full_like(idx, S))
+    order = torch.topk(key, cap, dim=-1, largest=False, sorted=True).values
+    gate = (order < S).to(s.dtype)
+    order = torch.clamp(order, max=S - 1)
+    xyc = torch.stack([order // (W * C), (order // C) % W, order % C],
+                      dim=-1).to(torch.int32)
+    n = nz.sum(dim=-1, dtype=torch.int32)
+    n_drop = torch.clamp(n - cap, min=0)
+    return xyc, gate, n_drop
 
 
 def crop_interior(vp: torch.Tensor, h: int) -> torch.Tensor:

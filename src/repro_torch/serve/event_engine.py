@@ -8,7 +8,8 @@ counted; out-of-range events are dropped and counted apart); all active
 slots then advance together through one window step of the compiled
 layer program (`core.layer_program.window_step`), whose kernels are the
 port's CUDA kernels: by default the fused-window lowering (one launch per
-layer per window, tile sparsity on), or the per-step one.
+layer per window, tile sparsity on), the fused-network one (one launch per
+window) or the per-step one (one per layer per timestep).
 
 **Idle skip.**  A slot whose window holds no input event provably does no
 work anywhere in the network (hard resets, ``leak >= 0``), so it skips
@@ -36,10 +37,12 @@ from repro_torch.core import events as ev
 from repro_torch.core.econv import EConvParams
 from repro_torch.core.engine import SneConfig
 from repro_torch.core.layer_program import (check_native_weights,
-                                            compile_program, padded_state,
+                                            compile_program,
+                                            effective_fusion, padded_state,
                                             window_step)
 from repro_torch.core.lif import supports_idle_skip
-from repro_torch.core.policies import BACKEND_LOCAL, ExecutionPolicy
+from repro_torch.core.policies import (BACKEND_LOCAL, FUSED_NETWORK,
+                                       FUSED_WINDOW, ExecutionPolicy)
 from repro_torch.core.sne_net import SNNSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.window_common import tile_grid
@@ -182,7 +185,7 @@ class EventServeEngine:
         self.skipped_windows = np.zeros((n_slots,), np.int64)
         self.stats = {"windows": 0, "admitted": 0, "completed": 0,
                       "collector_dropped": 0, "out_of_range_dropped": 0,
-                      "step_calls": 0,
+                      "step_calls": 0, "kernel_launches": 0,
                       "dense_slot_windows": 0, "skipped_slot_windows": 0,
                       "leak_flushes": 0,
                       "collected_events": 0, "launched_events": 0,
@@ -453,6 +456,13 @@ class EventServeEngine:
             np.minimum(xyc_w[t_, s_, e_, 1] // tw, nTy - 1)] = True
         self.stats["hot_tiles"] += int(hot.sum())
         self.stats["total_tiles"] += A * nTx * nTy
+        # the launches of the lowering that ran (a fused-network program
+        # over its budget ran fused-window: window_step's own predicate)
+        fusion = effective_fusion(self.program)
+        L = len(self.program.ops)
+        self.stats["kernel_launches"] += (
+            1 if fusion == FUSED_NETWORK
+            else L if fusion == FUSED_WINDOW else self.W * L)
         # retire: the one device-to-host read of the window
         counts_np = counts.cpu().numpy().astype(np.float64)
         drops_np = drops.cpu().numpy().astype(np.float64)

@@ -23,9 +23,9 @@ from repro.serve import telemetry as jtele
 from repro.train.snn_loop import load_trained_tiny
 from repro_torch.core import engine, events, lif, quant
 from repro_torch.core.econv import EConvParams
-from repro_torch.core.layer_program import frame_to_events
 from repro_torch.core.sne_net import init_snn, tiny_net
 from repro_torch.data import events_ds as ds
+from repro_torch.kernels.window_common import route_frame
 from repro_torch.serve import telemetry
 from repro_torch.weights import load_net, params_from_numpy
 
@@ -100,7 +100,7 @@ def test_frame_to_events_matches_jax(dtype, density, cap):
     rng = np.random.default_rng(int(density * 10) + cap)
     s = (rng.random((3, 4, 5, 3)) < density).astype(dtype)
     s[1] = 0                                   # one silent slot
-    got = frame_to_events(_t(s), cap)
+    got = route_frame(_t(s), cap)
     want = jframe_to_events(jnp.asarray(s), cap)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))

@@ -46,6 +46,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     scanned = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/kernels/window_common.py",
             "src/repro_torch/kernels/event_conv/ops.py",
+            "src/repro_torch/kernels/network_window/ops.py",
+            "src/repro_torch/kernels/network_window/ref.py",
+            "src/repro_torch/kernels/lif/ops.py",
             "src/repro_torch/core/layer_program.py",
             "chip_smoke.py"} <= scanned
     offenders = {str(p.relative_to(ROOT)): sorted(
@@ -67,8 +70,10 @@ def no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["compile_program", "compile_fused",
-                                   "engine", "engine_default", "load_net",
-                                   "params_from_numpy", "init_snn"])
+                                   "compile_network", "engine",
+                                   "engine_default", "engine_network",
+                                   "load_net", "params_from_numpy",
+                                   "init_snn"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
@@ -80,6 +85,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
                                            policy=ExecutionPolicy(
                                                fusion_policy="per-step")),
         "engine_default": lambda: EventServeEngine(spec, params, n_slots=2),
+        "compile_network": lambda: compile_program(
+            spec, policy=ExecutionPolicy(fusion_policy="fused-network")),
+        "engine_network": lambda: EventServeEngine(
+            spec, params, n_slots=2,
+            policy=ExecutionPolicy(fusion_policy="fused-network")),
         "load_net": lambda: load_net(
             sample_recording_path("tiny_gesture_trained.npz"), spec),
         "params_from_numpy": lambda: params_from_numpy(
@@ -104,3 +114,6 @@ def test_the_cuda_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError, match="expected CUDA"):
         event_fc_window(v, w, xyc[:, None], gate[:, None], torch.ones((1, 1)),
                         lif=LifParams(), in_shape=(2, 2, 2))
+    from repro_torch.kernels.lif import lif_fused
+    with pytest.raises(ValueError, match="expected CUDA"):
+        lif_fused(v, torch.zeros((1, 1, 1, 4), device="meta"), 1.0, 0.1, 0.9)

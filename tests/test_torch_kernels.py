@@ -1,5 +1,6 @@
-"""The port's three scatter kernels against the JAX reference, and all
-six CUDA kernels against their plain versions on the card.
+"""The port's scatter kernels and its fused LIF kernel against the JAX
+reference, and all eight CUDA kernels against their plain versions on the
+card.
 
 The same numpy inputs go through the port's wrapper on CPU tensors (which
 runs the plain PyTorch version) and through the JAX package's
@@ -11,7 +12,9 @@ shape.  Every comparison is exact (``np.array_equal``, which counts -0.0
 equal to +0.0: a gated-off event in the reference adds ``w * 0``, which
 can flip the sign of a zero and nothing else; the port skips it).  The
 window kernels' plain versions are held against the reference in
-``test_torch_window.py``, on the inputs :func:`window_case` builds here.
+``test_torch_window.py``, on the inputs :func:`window_case` builds here,
+and the fused-network plain version in ``test_torch_network.py``, on the
+inputs :func:`network_case` builds here.
 
 The CUDA kernels themselves run only on a card: their tests carry the
 ``gpu`` marker and skip here.  The card's machine has no JAX, so this file
@@ -25,7 +28,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import layer_program as lp
+from repro_torch.core.econv import EConvSpec
 from repro_torch.core.lif import LifParams
+from repro_torch.core.policies import ExecutionPolicy
+from repro_torch.core.quant import quantize_net
+from repro_torch.core.sne_net import SNNSpec, init_snn, tiny_net
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.event_conv import (event_conv_batched,
                                             event_conv_window,
@@ -38,6 +46,9 @@ from repro_torch.kernels.event_pool import (event_pool_batched,
                                             event_pool_window,
                                             event_pool_window_ref)
 from repro_torch.kernels.event_pool.ref import event_pool_batched_ref
+from repro_torch.kernels.lif import lif_fused, lif_fused_ref
+from repro_torch.kernels.network_window import (network_window,
+                                                network_window_ref)
 from repro_torch.kernels.window_common import (dilate_conv, dilate_pool,
                                                seed_site_map, sites_to_tiles,
                                                tile_grid)
@@ -242,6 +253,36 @@ def test_plain_matches_interpret_mode_pallas(kind):
 
 
 # ---------------------------------------------------------------------------
+# the fused LIF boundary (off the serving path; the reference's shapes)
+# ---------------------------------------------------------------------------
+
+LIF_SHAPES = [(64,), (33, 7), (8, 16, 4), (1000,), (256, 128)]
+
+
+def lif_case(shape, dt):
+    rng = np.random.default_rng(dt + len(shape))
+    v = rng.normal(size=shape).astype(np.float32) * 2
+    syn = rng.normal(size=shape).astype(np.float32)
+    return v, syn
+
+
+@pytest.mark.parametrize("shape", LIF_SHAPES)
+@pytest.mark.parametrize("dt", [0, 1, 5])
+@pytest.mark.parametrize("clip", [None, 3.0])
+def test_lif_fused_plain_matches_jax(shape, dt, clip):
+    import jax.numpy as jnp
+    jref = importlib.import_module("repro.kernels.lif.ref").lif_fused_ref
+    v, syn = lif_case(shape, dt)
+    got = lif_fused(_t(v), _t(syn), torch.tensor(float(dt)), 0.1, 0.9, clip)
+    want = jref(jnp.asarray(v), jnp.asarray(syn), jnp.asarray(float(dt)),
+                0.1, 0.9, clip)
+    for g, w in zip(got, want):               # bitwise, not to 1e-6
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1].any() and not got[1].all()
+
+
+# ---------------------------------------------------------------------------
 # the fused window kernels' inputs (used here and by test_torch_window.py)
 # ---------------------------------------------------------------------------
 
@@ -383,3 +424,128 @@ def test_cuda_window_kernel_matches_plain(cuda, kind, tiles, pairing):
     assert LAUNCHES[f"event_{kind}_window"] == before + 1
     for g, x in zip(got, want):
         assert g.dtype == x.dtype and torch.equal(g, x)
+
+
+# ---------------------------------------------------------------------------
+# the fused-network kernel's inputs (used here and by test_torch_network.py)
+# ---------------------------------------------------------------------------
+
+def mini_fig6(n_timesteps: int = 8) -> SNNSpec:
+    """The Fig. 6 topology cut to 16x16x2: pool, conv, pool, fc, fc (every
+    kind fed by the in-kernel routing, a conv among them)."""
+    lif = LifParams(threshold=1.0, leak=0.03125)
+    l0 = EConvSpec("pool", (16, 16, 2), 2, kernel=2, stride=2, lif=lif)
+    l1 = EConvSpec("conv", l0.out_shape, 4, kernel=3, padding=1, lif=lif)
+    l2 = EConvSpec("pool", l1.out_shape, 4, kernel=2, stride=2, lif=lif)
+    l3 = EConvSpec("fc", l2.out_shape, 8, lif=lif)
+    l4 = EConvSpec("fc", l3.out_shape, 3, lif=lif)
+    return SNNSpec(layers=(l0, l1, l2, l3, l4), n_timesteps=n_timesteps,
+                   n_classes=3)
+
+
+# small boundaries: routing overflows, and drops are counted
+NETWORK_CAPS = {"tiny": (24, 40, 24), "mini": (24, 16, 24, 8, 4)}
+
+
+def network_case(net, pairing, tiles, seed, N=3, T=4, E=12):
+    """One fused-network launch's inputs on the CPU, as numpy.
+
+    ``net`` is ``"tiny"`` (conv first: halo coordinates) or ``"mini"``
+    (:func:`mini_fig6`); the f32 pairing keeps float weights unquantized
+    (accumulation order visible), the native one runs the quantized net.
+    ``tiles`` None runs dense; ``"sparse"`` confines the events to a corner,
+    starts every membrane below threshold and takes the bitmaps
+    ``window_tile_maps`` propagates.  Liveness is random.
+
+    Returns ``(program, states, weights, xyc, gate, alive, tiles)``; the
+    schedule is slot-major (conv: halo coordinates), ``tiles`` a list of
+    per-layer bitmaps or None.
+    """
+    rng = np.random.default_rng(seed)
+    spec = tiny_net() if net == "tiny" else mini_fig6()
+    params = init_snn(rng, spec, device="cpu")
+    native = pairing == "native"
+    if native:
+        q = quantize_net(params, spec)
+        spec, params = q.spec, q.params_for("int8-native")
+    prog = lp.compile_program(
+        spec, step_capacities=NETWORK_CAPS[net], device="cpu",
+        policy=ExecutionPolicy(dtype_policy="int8-native" if native
+                               else "f32-carrier",
+                               fusion_policy="fused-network"))
+    corner = tiles == "sparse"
+    states = []
+    for op in prog.ops:
+        shape = tuple(lp.padded_state(op, n_slots=N).shape)
+        top = op.lif.threshold
+        if native:
+            clip = int(op.lif.state_clip)
+            states.append(rng.integers(-clip, (int(top) - 1 if corner
+                                               else clip) + 1, shape)
+                          .astype(np.int8))
+        else:
+            v = (rng.standard_normal(shape) * 0.6).astype(np.float32)
+            states.append(np.minimum(v, np.float32(top * 0.9)) if corner
+                          else v)
+    H, W, C = spec.in_shape
+    hi = (H // 4, W // 4) if corner else (H, W)
+    xyc = np.stack([rng.integers(0, hi[0], (T, N, E)),
+                    rng.integers(0, hi[1], (T, N, E)),
+                    rng.integers(0, C, (T, N, E))], -1).astype(np.int32)
+    gate = (rng.random((T, N, E)) < 0.8).astype(np.float32)
+    alive = (rng.random((N, T)) < 0.8).astype(np.float32)
+    bitmaps = None
+    if corner:
+        bitmaps = [t.numpy() for t in lp.window_tile_maps(
+            prog, _t(xyc), _t(gate))]
+        assert 0 < bitmaps[0].sum() < bitmaps[0].size
+    op0 = prog.ops[0]
+    if op0.kind == "conv":
+        xyc = xyc + np.asarray([op0.spec.padding, op0.spec.padding, 0],
+                               np.int32)
+    weights = [p.w.numpy() for p in params]
+    return (prog, states, weights, xyc.transpose(1, 0, 2, 3),
+            gate.transpose(1, 0, 2), alive, bitmaps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", [None, "sparse"])
+@pytest.mark.parametrize("pairing", list(WINDOW_PAIRINGS))
+@pytest.mark.parametrize("net", ["tiny", "mini"])
+def test_cuda_network_window_matches_plain(cuda, net, pairing, tiles):
+    # E > the kernel's 128-event stage: more than one chunk per timestep
+    prog, states, weights, xyc, gate, alive, bitmaps = network_case(
+        net, pairing, tiles, 12, N=4, T=4, E=200)
+    native = pairing == "native"
+    acc = torch.int32 if native else torch.float32
+    args = ([_t(v).to(cuda) for v in states],
+            [_t(w).to(cuda) for w in weights], _t(xyc).to(cuda),
+            _t(gate).to(acc).to(cuda), _t(alive).to(cuda))
+    kw = dict(layers=lp._net_layers(prog), native=native,
+              tiles=None if bitmaps is None
+              else [_t(b).to(cuda) for b in bitmaps])
+    before = LAUNCHES["network_window"]
+    got = network_window(*args, **kw)
+    want = network_window_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["network_window"] == before + 1
+    for g, x in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert g.dtype == x.dtype and torch.equal(g, x)
+    assert int(got[3].sum()) > 0 or tiles == "sparse"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 40, 40, 16), (1000, 7)])
+@pytest.mark.parametrize("dt", [0, 1, 5])
+@pytest.mark.parametrize("clip", [None, 3.0])
+def test_cuda_lif_fused_matches_plain(cuda, shape, dt, clip):
+    v, syn = lif_case(shape, dt)
+    args = (_t(v).to(cuda), _t(syn).to(cuda),
+            torch.tensor(float(dt), device=cuda), 0.1, 0.9, clip)
+    before = LAUNCHES["lif_fused"]
+    got = lif_fused(*args)
+    want = lif_fused_ref(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["lif_fused"] == before + 1
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)

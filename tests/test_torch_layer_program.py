@@ -54,11 +54,19 @@ def test_capacities_and_geometry_match_jax(nets):
             jlp.layer_stream_capacity(jop.spec, 100)
 
 
-@pytest.mark.parametrize("fusion,item", [("fused-network", "item 5")])
-def test_fused_policies_are_refused(fusion, item):
-    with pytest.raises(NotImplementedError, match=item):
-        lp.compile_program(tiny_net(), device="cpu",
-                           policy=ExecutionPolicy(fusion_policy=fusion))
+@pytest.mark.parametrize("fusion", ["per-step", "fused-window",
+                                    "fused-network"])
+def test_every_fusion_policy_compiles_and_unknown_is_refused(fusion):
+    prog = lp.compile_program(tiny_net(), device="cpu",
+                              policy=ExecutionPolicy(fusion_policy=fusion))
+    assert prog.fusion_policy == lp.effective_fusion(prog) == fusion
+    with pytest.raises(ValueError, match="unknown fusion policy"):
+        ExecutionPolicy(fusion_policy=fusion + "-bis")
+    # a policy value that slipped past its own check is refused too
+    pol = ExecutionPolicy(fusion_policy=fusion)
+    object.__setattr__(pol, "fusion_policy", fusion + "-bis")
+    with pytest.raises(ValueError, match="unknown fusion policy"):
+        lp.compile_program(tiny_net(), device="cpu", policy=pol)
 
 
 def test_native_policy_refuses_float_specs_and_weights():

@@ -1,12 +1,14 @@
 """The port's serving engine end to end, against the JAX reference.
 
-* the trained tiny checkpoint, served under both dtype policies, per-step
-  and fused-window (tile sparsity on and off), equals the committed golden
-  ``tests/golden/tiny_gesture_trained_serve.npz`` key for key;
+* the trained tiny checkpoint, served under both dtype policies, per-step,
+  fused-window (tile sparsity on and off) and fused-network, equals the
+  committed golden ``tests/golden/tiny_gesture_trained_serve.npz`` key for
+  key;
 * the port's engine equals the live JAX engine (``use_pallas=False``) on
   synthesized 12x12 recordings, idle skip on and off, under the same
   lowerings: per-request class counts and telemetry, engine statistics
-  (layer-0 tile occupancy included), padding and drop accounting;
+  (layer-0 tile occupancy and kernel launches included: 1 per step call
+  under fused-network), padding and drop accounting;
 * the full-width Fig. 6 slice (``dvs_gesture_net(n_timesteps=8)``, two
   requests at 2 MHz on two slots) equals the JAX engine under both dtype
   policies.
@@ -42,9 +44,10 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "tiny_gesture_trained_serve.npz")
 WINDOW_US = 1000
 POLICIES = ["f32-carrier", "int8-native"]
-# (fusion policy, tile sparsity): the per-step oracle and the default
-# fused-window lowering with its bitmaps on and off
-FUSIONS = [("per-step", True), ("fused-window", True), ("fused-window", False)]
+# (fusion policy, tile sparsity): the per-step oracle, the default
+# fused-window lowering with its bitmaps on and off, and fused-network
+FUSIONS = [("per-step", True), ("fused-window", True), ("fused-window", False),
+           ("fused-network", True)]
 
 
 def _results(reqs):
@@ -67,10 +70,8 @@ def _results(reqs):
 
 
 # counters the reference keeps and the port does not: SLO evictions (the
-# streaming runtime) are not ported yet; the port counts kernel launches
-# where they happen, in `repro_torch.kernels.LAUNCHES`, not analytically
-# per window
-_NOT_IN_PORT = ("evicted", "kernel_launches")
+# streaming runtime) are not ported yet
+_NOT_IN_PORT = ("evicted",)
 
 
 def _stats(jeng):
@@ -172,6 +173,9 @@ def test_engine_matches_live_jax_engine(dtype_policy, idle_skip, fusion,
     if idle_skip:
         assert eng.stats["skipped_slot_windows"] > 0
     assert 0 < eng.stats["hot_tiles"] < eng.stats["total_tiles"]
+    per_call = {"per-step": 4 * 3, "fused-window": 3, "fused-network": 1}
+    assert eng.stats["kernel_launches"] == (per_call[fusion]
+                                            * eng.stats["step_calls"])
 
 
 @pytest.mark.parametrize("dtype_policy", POLICIES)
