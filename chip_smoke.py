@@ -12,8 +12,10 @@ non-zero):
    versions, and the build of every ``src/repro_torch/kernels/csrc/*.cu``
    (one ``nvcc`` per source, all started together);
 2. each CUDA kernel against its plain PyTorch version on the card, bitwise
-   (``torch.equal``), with kernel and plain times and the least time the
-   card could take (``bound_ms``):
+   (``torch.equal``), with kernel and plain times, the kernel's device-only
+   time (``device_ms``, from the profiler) and the least time the card
+   could take (``bound_ms``); the two pool kernels also on a holed and an
+   empty-slot gate pattern of the same events:
    a. the three per-step scatters at the Fig. 6 layer shapes (8 slots),
       under every dtype pairing, beside PyTorch's library route to the
       same slab (checked against the kernel to float32 rounding);
@@ -135,6 +137,95 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, name: str, reps: int = 10, tries: int = 5):
+    """Mean device-only milliseconds of one launch of the CUDA kernel
+    ``name`` over ``reps`` calls of ``fn()``: the profiler's (CUPTI) device
+    time of the kernels named ``<name>_kernel``, summed, over the count of
+    them the profiler saw.  Unlike :func:`cuda_ms` it leaves out the
+    wrapper's host cost.  CUPTI now and then delivers no record of a
+    session, sometimes of several in a row: a session that sees fewer
+    than half the launches is run again after a pause, at most ``tries``
+    times in all, and if none does the time is not measured (None).  It
+    is a measurement, never a check."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    pad = torch.zeros(1, device="cuda")
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            for _ in range(4):      # so that no launch of ours comes last
+                pad.add_(1)
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA")
+                 and f"{name}_kernel" in e.key]
+        count = sum(e.count for e in found)
+        if 2 * count >= reps and count <= reps:
+            return sum(e.self_device_time_total for e in found) / 1e3 / count
+        seen.append(count)
+        time.sleep(0.2)
+    log(f"  {name}: device time not measured (the profiler saw {seen} "
+        f"launches of {reps} in {tries} sessions)")
+    return None
+
+
+def _ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _gate_variants(gate, seed: int) -> dict:
+    """Gate patterns beyond the main path's gated prefix, on its events:
+    ``holed`` (half the gated events switched off, and in every other slot
+    the list's last event switched on, so the walk runs to the end past
+    the holes) and ``empty_slot`` (slot 0 gated off).  ``gate`` is (N, E)
+    or (N, T, E)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    keep = torch.from_numpy(rng.random(tuple(gate.shape)) < 0.5)
+    holed = torch.where(keep.to(gate.device), gate, torch.zeros_like(gate))
+    holed[1::2, ..., -1] = 1
+    empty = gate.clone()
+    empty[0] = 0
+    return {"holed": holed, "empty_slot": empty}
+
+
+def _pattern_rows(name, layer, pairing, gate, call, seed) -> list:
+    """A pool kernel on the :func:`_gate_variants` of its main-path gates,
+    bitwise against its plain version; ``call(which, g)`` runs the kernel
+    (``"kern"``) or the plain version (``"plain"``) on gates ``g``."""
+    import torch
+    rows = []
+    for pattern, g in _gate_variants(gate, seed).items():
+        kern, plain = partial(call, "kern", g), partial(call, "plain", g)
+        got, want = _as_tuple(kern()), _as_tuple(plain())
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                diff = (a.double() - b.double()).abs().max().item()
+                raise AssertionError(f"{name} layer {layer} {pairing} "
+                                     f"{pattern}: kernel != plain (max "
+                                     f"|diff| {diff})")
+        row = {"kernel": name, "layer": layer, "pairing": pairing,
+               "pattern": pattern, "main": False,
+               "gated_events": int((g != 0).sum()), "ms": cuda_ms(kern, 20),
+               "device_ms": device_ms(kern, name), "max_abs_err": 0.0}
+        rows.append(row)
+        log(f"  {name:20s} layer {layer} {pairing:6s} {pattern:10s} "
+            f"gated={row['gated_events']:6d}  kernel {row['ms']:.4f} ms  "
+            f"device {_ms_text(row['device_ms'])}  equal")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -336,16 +427,26 @@ def phase_kernels(program, dev) -> list:
                    "N": v.shape[0], "slab": list(v.shape[1:]),
                    "E": int(xyc.shape[1]),
                    "gated_events": int((gate != 0).sum()),
-                   "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 1, 1),
+                   "ms": cuda_ms(kern, 20), "device_ms": device_ms(kern, name),
+                   "plain_ms": cuda_ms(plain, 1, 1),
                    "library_ms": lib_ms, "library_max_abs_err": lib_err,
                    "bound_ms": bound_ms,
                    "bound_by": bound_by, "max_abs_err": err}
             rows.append(row)
             log(f"  {name:20s} layer {op.index} {pairing:5s} slab "
                 f"{tuple(v.shape)} E={row['E']:5d} gated={row['gated_events']:5d}"
-                f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms"
+                f"  kernel {row['ms']:.4f} ms  device "
+                f"{_ms_text(row['device_ms'])}  plain {row['plain_ms']:.2f} ms"
                 f"  library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
                 f" ms  bound {bound_ms:.5f} ms ({bound_by})  equal")
+            if spec.kind == "pool":
+                def call(which, g, v=v, w=w, xyc=xyc, s=spec.stride,
+                         out=out_dtype):
+                    fn = (event_pool_batched if which == "kern"
+                          else event_pool_batched_ref)
+                    return fn(v, w, xyc, g, s, out)
+                rows += _pattern_rows(name, op.index, pairing, gate, call,
+                                      op.index)
     torch.cuda.synchronize()
     return rows
 
@@ -513,6 +614,7 @@ def phase_window_kernels(spec, qn, dev):
                        "hot_tiles": None if t_bm is None else int(t_bm.sum()),
                        "tiles": None if t_bm is None else t_bm.numel(),
                        "ms": cuda_ms(kern, 20),
+                       "device_ms": device_ms(kern, name),
                        "plain_ms": cuda_ms(plain, 1, 1),
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "max_abs_err": 0.0, "library_ms": None,
@@ -558,9 +660,18 @@ def phase_window_kernels(spec, qn, dev):
                     f"{tiles_txt} slab {tuple(vp.shape)} T={row['T']} "
                     f"E={row['E']:5d} "
                     f"gated={row['gated_events']:6d}  kernel "
-                    f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms"
+                    f"{row['ms']:.4f} ms  device "
+                    f"{_ms_text(row['device_ms'])}  plain {row['plain_ms']:.2f} ms"
                     f"{lib_txt}  bound {bound_ms:.5f} ms ({bound_by})  "
                     f"equal")
+            if kind == "pool":
+                # the variants may gate padding on: an all-ones bitmap
+                def call(which, g, args=(vp, p.w, x_k), alive=alive,
+                         kw=dict(kw, tiles=torch.ones_like(tiles))):
+                    fn = fns["pool"][0 if which == "kern" else 1]
+                    return fn(*args, g, alive, **kw)
+                rows += _pattern_rows(name, op.index, pairing, gate_k, call,
+                                      10 + op.index)
     torch.cuda.synchronize()
     return rows, captured
 
@@ -651,7 +762,9 @@ def phase_network_kernel(captured, dev) -> list:
                    "E0": int(launch.xyc.shape[2]),
                    "routed_events": [int((lw.gate != 0).sum()) for lw in fw],
                    "hot_tiles": [int(t.sum()) for t in run.tiles],
-                   "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 1, 1),
+                   "ms": cuda_ms(kern, 20),
+                   "device_ms": device_ms(kern, "network_window"),
+                   "plain_ms": cuda_ms(plain, 1, 1),
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "max_abs_err": 0.0, "library_ms": None,
                    "fused_window_ms": None, "network_step_ms": None}
@@ -673,7 +786,8 @@ def phase_network_kernel(captured, dev) -> list:
                      f"network lowering {row['network_step_ms']:.4f} ms")
             log(f"  network_window     {pairing:6s} {bm:6s} N={row['N']} "
                 f"T={row['T']} E0={row['E0']} routed {row['routed_events']}"
-                f" hot {row['hot_tiles']}  kernel {row['ms']:.4f} ms  plain "
+                f" hot {row['hot_tiles']}  kernel {row['ms']:.4f} ms  device "
+                f"{_ms_text(row['device_ms'])}  plain "
                 f"{row['plain_ms']:.2f} ms{extra}  bound {bound_ms:.5f} ms "
                 f"({bound_by})  equal")
     torch.cuda.synchronize()
@@ -738,12 +852,15 @@ def phase_lif_kernel(dev) -> list:
                        "shape": list(shape), "dt": dt, "clip": clip,
                        "main": shape[1:] == (40, 40, 16) and dt == 1
                        and clip is None,
-                       "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 20),
+                       "ms": cuda_ms(kern, 20),
+                       "device_ms": device_ms(kern, "lif_fused"),
+                       "plain_ms": cuda_ms(plain, 20),
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "max_abs_err": 0.0, "library_ms": None}
                 rows.append(row)
                 log(f"  lif_fused {str(tuple(shape)):18s} dt={dt} clip="
-                    f"{clip}  kernel {row['ms']:.4f} ms  plain (torch ops) "
+                    f"{clip}  kernel {row['ms']:.4f} ms  device "
+                    f"{_ms_text(row['device_ms'])}  plain (torch ops) "
                     f"{row['plain_ms']:.4f} ms  bound {bound_ms:.5f} ms "
                     f"({bound_by})  equal")
     return rows
@@ -999,10 +1116,10 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
                            N_SLOTS, dev)
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    out = {"wall_ms": 1e3 * wall, "device_kernel_ms": device_ms,
-           "device_busy_share": device_ms / (1e3 * wall) if device_ms
+    out = {"wall_ms": 1e3 * wall, "device_kernel_ms": kernel_ms,
+           "device_busy_share": kernel_ms / (1e3 * wall) if kernel_ms
            else None,
            "top_kernels": [{"name": e.key[:80], "calls": e.count,
                             "device_ms": e.self_device_time_total / 1e3}
@@ -1011,7 +1128,7 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
              if out["device_busy_share"] is None
              else f"{out['device_busy_share']:.2%}")
     log(f"  traced {fusion} cohort: wall {out['wall_ms']:.1f} ms, device "
-        f"kernels {device_ms:.1f} ms, device busy {share} [{smi}]")
+        f"kernels {kernel_ms:.1f} ms, device busy {share} [{smi}]")
     for k in out["top_kernels"]:
         log(f"    {k['device_ms']:9.2f} ms  {k['calls']:6d} calls  "
             f"{k['name']}")
@@ -1027,11 +1144,13 @@ def _kernel_entry(name, mine, launches):
                                      and r.get("bitmap", "sparse")
                                      in ("sparse", "none"))]
     lib = [r["library_ms"] for r in main]
+    dev = [r["device_ms"] for r in main]
     return {
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": max(r["max_abs_err"] for r in mine),
         "ms": sum(r["ms"] for r in main),
+        "device_ms": None if None in dev else sum(dev),
         "plain_ms": sum(r["plain_ms"] for r in main),
         "bound_ms": sum(r["bound_ms"] for r in main),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main)

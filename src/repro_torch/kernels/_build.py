@@ -38,7 +38,7 @@ _SIGNATURES = {
     "event_conv_window": ("sne_event_conv_window",
                           [_P] * 8 + [_I] * 15 + _LIF + [_P]),
     "event_pool_window": ("sne_event_pool_window",
-                          [_P] * 9 + [_I] * 13 + _LIF + [_P]),
+                          [_P] * 8 + [_I] * 13 + _LIF + [_P]),
     "event_fc_window": ("sne_event_fc_window",
                         [_P] * 7 + [_I] * 8 + _LIF + [_P]),
     # host arrays (layer descriptors, LIF floats, pointers), then as named

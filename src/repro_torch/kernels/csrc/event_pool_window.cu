@@ -16,108 +16,101 @@
 // are hot.  Spikes (N, T, Ho, Wo, C) are written in the accumulator dtype,
 // every entry once (zeros for cold tiles and frozen timesteps).
 //
-// What bounds it on the card: as the per-step pool kernel, the serial order
-// of each slot's events: every owner looks at every event of its slot.
-// The window adds T sweeps over the slab, a few bytes per site.
+// What bounds it on the card: as the per-step pool kernel, the serial
+// order of each site's events and the latency of the dependent steps of
+// each timestep, not bytes (the slab in and out, T gate rows, 12 bytes
+// per walked event, T spike frames) nor operations.  The schedule is
+// padded to a capacity far above its gated events (Fig. 6's pool1: 16384
+// events per timestep, about 1236 gated per slot), and every block would
+// otherwise look at every padded event of its slot, every timestep.
 //
-// Design: the per-step pool kernel's ownership of sites.  The sites of
-// one slot are split over T_thr = blocks_per_slot * 256 threads (a power
-// of two); thread r owns the sites s with s mod T_thr == r and is the only
-// one that reads or writes them, through the whole window: leak, its
-// matching events in order, clip/fire/reset, clamp, the cold-tile settle.
-// So no float atomics and no synchronisation between blocks; a block
-// synchronises only around its shared-memory event stage.  The running
-// membrane lives in `acc` (device memory in the accumulator dtype, touched
-// only by the owner, so it stays in the owner's L1 line); the bitmap
-// (<= 16 entries) is copied to shared memory.
+// Design: the per-step pool kernel's walk (`pool_walk.cuh`).  The sites
+// of one slot are split over n_thr = blocks_per_slot * 256 threads (a
+// power of two); thread r owns the sites s with s mod n_thr == r and is
+// the only one that reads or writes them, through the whole window: leak,
+// its matching events in order, clip/fire/reset, clamp, the cold-tile
+// settle.  Its membranes live in its column of shared memory for the whole
+// window, read from `v` once and written to `v_out` once; each timestep's
+// walk ends at the slot's last gated event and applies only the events the
+// block owns, filtered in list order.  So no float atomics and no
+// synchronisation between blocks; the bitmap (<= 16 entries) is copied to
+// shared memory.
 #include "lif_common.cuh"
+#include "pool_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using sne::pool::kThreads;
 
 template <typename VS, typename Wt, typename Acc, bool kNative>
 __global__ void __launch_bounds__(kThreads) event_pool_window_kernel(
     const VS* __restrict__ v, const Wt* __restrict__ w,
     const int32_t* __restrict__ ev, const Acc* __restrict__ gate,
     const float* __restrict__ alive, const int32_t* __restrict__ tiles,
-    Acc* acc, VS* v_out, Acc* __restrict__ s_out, int Ho, int Wo, int C,
+    VS* __restrict__ v_out, Acc* __restrict__ s_out, int Ho, int Wo, int C,
     int stride, int T, int E, int nTx, int nTy, int th, int tw,
     sne::LifArgs p) {
-  __shared__ int ev_site[sne::kChunk];
-  __shared__ Acc ev_val[sne::kChunk];
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int hot[sne::kMaxTiles];
+  sne::pool::Scratch sc;
+  Acc* mem = sne::pool::carve<Acc>(smem, sc);
   const int n = blockIdx.x;
   const int tid = threadIdx.x;
-  const int n_thr = gridDim.y * blockDim.x;        // a power of two
-  const int mine = blockIdx.y * blockDim.x + tid;  // owned residue
+  const int n_thr = gridDim.y * kThreads;          // a power of two
+  const int mine = blockIdx.y * kThreads + tid;    // owned residue
   const int S = Ho * Wo * C;
+  const int J = sne::pool::owned_per_thread(S, n_thr);
   const size_t base_n = (size_t)n * S;
   const int n_tiles = nTx * nTy;
+  const sne::pool::Geom geo{Ho, Wo, C, stride, __ffs(n_thr) - 1,
+                            (int)gridDim.y};
   if (tid < n_tiles) hot[tid] = tiles ? tiles[(size_t)n * n_tiles + tid] : 1;
+  for (int j = 0; j < J; ++j) {
+    const int s = mine + j * n_thr;
+    if (s < S) mem[j * kThreads + tid] = static_cast<Acc>(v[base_n + s]);
+  }
+  __syncthreads();                            // hot is filled
 
-  for (int s = mine; s < S; s += n_thr)
-    acc[base_n + s] = static_cast<Acc>(v[base_n + s]);
-  __syncthreads();
+  // whether site s lies in a hot tile
+  auto is_hot = [&](int s) {
+    const int pix = s / C;
+    return hot[sne::tile_of(pix / Wo, pix % Wo, th, tw, nTy)] != 0;
+  };
 
   int n_alive = 0;
   for (int t = 0; t < T; ++t) {
     const size_t nt = (size_t)n * T + t;
     Acc* s_t = s_out + nt * S;
     if (!(alive[nt] > 0.f)) {                 // uniform across the block
-      for (int s = mine; s < S; s += n_thr) s_t[s] = Acc(0);
+      for (int j = 0; j < J; ++j) {
+        const int s = mine + j * n_thr;
+        if (s < S) s_t[s] = Acc(0);
+      }
       continue;
     }
     ++n_alive;
-    for (int s = mine; s < S; s += n_thr) {
-      const int pix = s / C;
-      if (hot[sne::tile_of(pix / Wo, pix % Wo, th, tw, nTy)])
-        acc[base_n + s] = sne::leak_step(acc[base_n + s], p);
+    for (int j = 0; j < J; ++j) {
+      const int s = mine + j * n_thr;
+      if (s < S && is_hot(s))
+        mem[j * kThreads + tid] = sne::leak_step(mem[j * kThreads + tid], p);
     }
-    const int32_t* evt = ev + nt * E * 3;
-    const Acc* gt = gate + nt * E;
-    for (int base = 0; base < E; base += sne::kChunk) {
-      const int cnt = min(sne::kChunk, E - base);
-      for (int i = tid; i < cnt; i += blockDim.x) {
-        const int32_t* e = evt + (size_t)(base + i) * 3;
-        const Acc g = gt[base + i];
-        int site = -1;
-        Acc val = Acc(0);
-        if (g != Acc(0) && e[0] >= 0 && e[1] >= 0 && e[2] >= 0 && e[2] < C) {
-          const int xo = e[0] / stride, yo = e[1] / stride;
-          if (xo < Ho && yo < Wo) {
-            site = (xo * Wo + yo) * C + e[2];
-            val = sne::mul_rn(static_cast<Acc>(w[e[2]]), g);
-          }
-        }
-        ev_site[i] = site;
-        ev_val[i] = val;
-      }
-      __syncthreads();
-      for (int i = 0; i < cnt; ++i) {
-        const int site = ev_site[i];
-        if (site >= 0 && (site & (n_thr - 1)) == mine)
-          acc[base_n + site] = sne::add_rn(acc[base_n + site], ev_val[i]);
-      }
-      __syncthreads();
-    }
-    for (int s = mine; s < S; s += n_thr) {
-      const int pix = s / C;
-      Acc a = acc[base_n + s];
+    sne::pool::walk(sc, ev + nt * E * 3, gate + nt * E, E, w, geo, mem);
+    for (int j = 0; j < J; ++j) {
+      const int s = mine + j * n_thr;
+      if (s >= S) continue;
+      Acc a = mem[j * kThreads + tid];
       Acc spike = Acc(0);
-      if (hot[sne::tile_of(pix / Wo, pix % Wo, th, tw, nTy)])
-        spike = sne::clip_fire_reset(a, p);
+      if (is_hot(s)) spike = sne::clip_fire_reset(a, p);
       if (kNative) a = sne::saturate_int8(a);
-      acc[base_n + s] = a;
+      mem[j * kThreads + tid] = a;
       s_t[s] = spike;
     }
   }
-  for (int s = mine; s < S; s += n_thr) {
-    const int pix = s / C;
-    Acc a = acc[base_n + s];
-    if (p.reset_mode == 0 &&
-        !hot[sne::tile_of(pix / Wo, pix % Wo, th, tw, nTy)])
-      a = sne::idle_decay(a, p, n_alive);
+  for (int j = 0; j < J; ++j) {
+    const int s = mine + j * n_thr;
+    if (s >= S) continue;
+    Acc a = mem[j * kThreads + tid];
+    if (p.reset_mode == 0 && !is_hot(s)) a = sne::idle_decay(a, p, n_alive);
     v_out[base_n + s] = static_cast<VS>(a);
   }
 }
@@ -125,20 +118,23 @@ __global__ void __launch_bounds__(kThreads) event_pool_window_kernel(
 template <typename VS, typename Wt, typename Acc>
 cudaError_t launch(const void* v, const void* w, const void* ev,
                    const void* gate, const void* alive, const void* tiles,
-                   void* acc, void* v_out, void* s_out, int N, int Ho, int Wo,
-                   int C, int stride, int T, int E, int nTx, int nTy, int th,
-                   int tw, int blocks_per_slot, sne::LifArgs p,
-                   cudaStream_t stream) {
+                   void* v_out, void* s_out, int N, int Ho, int Wo, int C,
+                   int stride, int T, int E, int nTx, int nTy, int th, int tw,
+                   int blocks_per_slot, sne::LifArgs p, cudaStream_t stream) {
   constexpr bool kNative = sizeof(VS) == 1;
+  const size_t smem =
+      sne::pool::smem_bytes(Ho * Wo * C, blocks_per_slot * kThreads);
+  auto kern = event_pool_window_kernel<VS, Wt, Acc, kNative>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   dim3 grid(N, blocks_per_slot);
-  event_pool_window_kernel<VS, Wt, Acc, kNative>
-      <<<grid, kThreads, 0, stream>>>(
-          static_cast<const VS*>(v), static_cast<const Wt*>(w),
-          static_cast<const int32_t*>(ev), static_cast<const Acc*>(gate),
-          static_cast<const float*>(alive),
-          static_cast<const int32_t*>(tiles), static_cast<Acc*>(acc),
-          static_cast<VS*>(v_out), static_cast<Acc*>(s_out), Ho, Wo, C,
-          stride, T, E, nTx, nTy, th, tw, p);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const VS*>(v), static_cast<const Wt*>(w),
+      static_cast<const int32_t*>(ev), static_cast<const Acc*>(gate),
+      static_cast<const float*>(alive), static_cast<const int32_t*>(tiles),
+      static_cast<VS*>(v_out), static_cast<Acc*>(s_out), Ho, Wo, C, stride,
+      T, E, nTx, nTy, th, tw, p);
   return cudaGetLastError();
 }
 
@@ -146,9 +142,9 @@ cudaError_t launch(const void* v, const void* w, const void* ev,
 
 extern "C" int sne_event_pool_window(
     const void* v, const void* w, const void* ev, const void* gate,
-    const void* alive, const void* tiles, void* acc, void* v_out,
-    void* s_out, int N, int Ho, int Wo, int C, int stride, int T, int E,
-    int nTx, int nTy, int th, int tw, int blocks_per_slot, int pairing,
+    const void* alive, const void* tiles, void* v_out, void* s_out, int N,
+    int Ho, int Wo, int C, int stride, int T, int E, int nTx, int nTy,
+    int th, int tw, int blocks_per_slot, int pairing,
     float threshold, float leak, float clip, int leak_mode, int reset_mode,
     int has_clip, void* stream) {
   // launches on the caller's current device, which owns `stream`
@@ -162,8 +158,8 @@ extern "C" int sne_event_pool_window(
                        has_clip};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SNE_POOL_WINDOW_LAUNCH(VS, Wt, Acc)                                \
-  launch<VS, Wt, Acc>(v, w, ev, gate, alive, tiles, acc, v_out, s_out, N, \
-                      Ho, Wo, C, stride, T, E, nTx, nTy, th, tw,           \
+  launch<VS, Wt, Acc>(v, w, ev, gate, alive, tiles, v_out, s_out, N, Ho, \
+                      Wo, C, stride, T, E, nTx, nTy, th, tw,               \
                       blocks_per_slot, p, s)
   SNE_DISPATCH_WINDOW_PAIRING(pairing, SNE_POOL_WINDOW_LAUNCH)
 #undef SNE_POOL_WINDOW_LAUNCH

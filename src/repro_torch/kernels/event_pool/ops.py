@@ -20,15 +20,20 @@ from repro_torch.kernels.window_common import tile_grid
 
 NAME = "event_pool_batched"
 WINDOW_NAME = "event_pool_window"
-THREADS = 256            # the kernel's block size (kThreads)
+THREADS = 256            # the kernels' block size (pool_walk.cuh kThreads)
 MAX_BLOCKS_PER_SLOT = 8
+# sites a thread may own: its column of membranes in shared memory
+MAX_OWNED_PER_THREAD = 64
 
 
 def pool_blocks_per_slot(n_sites: int) -> int:
     """Blocks sharing one slot's sites: a power of two, about one site per
-    thread, at most ``MAX_BLOCKS_PER_SLOT``."""
+    thread, at most ``MAX_BLOCKS_PER_SLOT`` unless the owned membranes
+    would pass ``MAX_OWNED_PER_THREAD`` sites a thread."""
     p = 1
     while p < MAX_BLOCKS_PER_SLOT and p * THREADS < n_sites:
+        p *= 2
+    while p * THREADS * MAX_OWNED_PER_THREAD < n_sites:
         p *= 2
     return p
 
@@ -115,16 +120,12 @@ def event_pool_window(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
     T, E = ev_xyc.shape[1], ev_xyc.shape[2]
     v_out = torch.empty_like(v)
     s_out = torch.empty((N, T, Ho, Wo, C), dtype=acc, device=dev)
-    # the running membranes: in place in v_out on the float carrier, an
-    # int32 buffer on the native path (the slab is stored in int8)
-    acc_buf = v_out if acc == v.dtype else torch.empty(v.shape, dtype=acc,
-                                                       device=dev)
     fn = _build.library("event_pool_window").sne_event_pool_window
     with torch.cuda.device(dev):
         err = fn(v.data_ptr(), w.data_ptr(), ev_xyc.data_ptr(),
                  ev_gate.data_ptr(), alive.data_ptr(),
                  None if tiles is None else tiles.data_ptr(),
-                 acc_buf.data_ptr(), v_out.data_ptr(), s_out.data_ptr(), N,
+                 v_out.data_ptr(), s_out.data_ptr(), N,
                  Ho, Wo, C, stride, T, E, nTx, nTy, th, tw,
                  pool_blocks_per_slot(Ho * Wo * C), code, *lif_args(lif),
                  torch.cuda.current_stream(dev).cuda_stream)

@@ -45,6 +45,8 @@ from repro_torch.kernels.event_fc.ref import event_fc_batched_ref
 from repro_torch.kernels.event_pool import (event_pool_batched,
                                             event_pool_window,
                                             event_pool_window_ref)
+from repro_torch.kernels.event_pool.ops import (MAX_OWNED_PER_THREAD,
+                                                pool_blocks_per_slot)
 from repro_torch.kernels.event_pool.ref import event_pool_batched_ref
 from repro_torch.kernels.lif import lif_fused, lif_fused_ref
 from repro_torch.kernels.network_window import (network_window,
@@ -61,6 +63,16 @@ PAIRINGS = {
     "int8": (np.int8, np.int8, np.int8, np.int32),
     "int32": (np.int32, np.int8, np.int32, np.int32),
 }
+
+# events a pool block stages per pass (csrc/pool_walk.cuh kStage)
+POOL_STAGE = 2048
+# below one stage, one stage, stages and a remainder, Fig. 6 pool1's list
+POOL_WALK_E = [100, POOL_STAGE, 2 * POOL_STAGE + 333, 16384]
+GATE_PATTERNS = ["prefix", "holes", "empty_slot", "ragged", "repeats",
+                 "outside"]
+# input (H, W, C) at stride 2: 16x16x16 pooled sites, so 8 blocks share a
+# slot and each thread owns two; row 32 of the input is past the grid
+POOL_WALK_GEOMETRY = (33, 32, 16)
 
 
 def _arrays(rng, slab, wshape, pairing):
@@ -84,6 +96,10 @@ def _events(rng, N, E, hi, pairing, p_on=0.8):
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
 
 
 def _ref(kind, name):
@@ -149,6 +165,16 @@ def test_pool_plain_matches_jax(pairing, N, H, W, C, s, E):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n_sites,blocks", [
+    (100, 1), (256, 1), (257, 2), (2048, 8), (4096, 8), (131072, 8),
+    (131073, 16), (320 * 240 * 2, 16), (640 * 480 * 2, 64)])
+def test_pool_blocks_per_slot(n_sites, blocks):
+    # about one site a thread, at most 8 blocks unless a thread would own
+    # more than MAX_OWNED_PER_THREAD sites (its shared-memory column)
+    assert pool_blocks_per_slot(n_sites) == blocks
+    assert -(-n_sites // (blocks * 256)) <= MAX_OWNED_PER_THREAD
+
+
 def test_pool_valid_rule_drops_past_the_grid():
     v = np.zeros((1, 3, 3, 1), np.float32)       # 7 // 2 = 3 output rows
     w = np.ones((1,), np.float32)
@@ -158,6 +184,19 @@ def test_pool_valid_rule_drops_past_the_grid():
     np.testing.assert_array_equal(got, _jax("pool", v, w, xyc, gate, 2,
                                             out=np.float32))
     assert got[0, 0, 0, 0] == 1.0 and got.sum() == 1.0
+
+
+@pytest.mark.parametrize("pattern", GATE_PATTERNS)
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+def test_pool_plain_matches_jax_gate_patterns(pairing, pattern):
+    # the gate patterns the CUDA pool walk is held to on the card
+    v, w, xyc, gate, s = pool_walk_case("batched", pairing, pattern, 48, 21,
+                                        negative=False)
+    acc = PAIRINGS[pairing][3]
+    got = event_pool_batched(_t(v), _t(w), _t(xyc), _t(gate), s,
+                             out_dtype=_torch_out(pairing)).numpy()
+    np.testing.assert_array_equal(got, _jax("pool", v, w, xyc, gate, s,
+                                            out=acc))
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +413,118 @@ WINDOW_FNS = {"conv": (event_conv_window, event_conv_window_ref),
 
 
 # ---------------------------------------------------------------------------
+# the pool kernels' event walk: list lengths and gate patterns
+# ---------------------------------------------------------------------------
+
+def _gate_pattern(rng, pattern, rows, E, hi, slot, g_dt, negative):
+    """Events ``(rows, E, 3)`` and gates ``(rows, E)`` of one pattern.
+
+    ``prefix``: a gated prefix of random length, as `route_frame` pads;
+    ``holes``: scattered gates and a long gated-off run inside the list;
+    ``empty_slot``: a prefix, with slot 1 (``slot`` maps rows to slots)
+    gated off everywhere; ``ragged``: each row's walk ends somewhere else,
+    stage edges among them, with holes before the end; ``repeats``: a few
+    sites hit over and over with non-unit gates (the order of the adds
+    shows); ``outside``: past-the-grid coordinates, and negative ones if
+    ``negative``.
+    """
+    H, W, C = hi
+    idx = np.arange(E)
+    if pattern == "repeats":
+        # (0, 0, 1) and (1, 1, 1) pool to one site at stride 2
+        sites = np.asarray([[0, 0, 1], [1, 1, 1], [2, 3, 0], [5, 2, 1]],
+                           np.int32)
+        xyc = sites[rng.integers(0, len(sites), (rows, E))]
+    else:
+        lo = (-3, -3, -1) if pattern == "outside" and negative else (0,) * 3
+        top = (H + 3, W + 3, C + 1) if pattern == "outside" else (H, W, C)
+        xyc = np.stack([rng.integers(a, b, (rows, E))
+                        for a, b in zip(lo, top)], -1).astype(np.int32)
+    if pattern in ("prefix", "empty_slot", "repeats"):
+        on = idx < rng.integers(1, E + 1, (rows, 1))
+    elif pattern == "holes":
+        on = rng.random((rows, E)) < 0.3
+        on[:, E // 3: 2 * E // 3] = False
+    elif pattern == "ragged":
+        ends = np.unique(np.clip([E, 1, E - 1, POOL_STAGE + 1,
+                                  POOL_STAGE - 1, POOL_STAGE, E // 2, 33],
+                                 1, E))[::-1]
+        end = ends[np.arange(rows) % len(ends)]
+        on = (idx < end[:, None]) & (rng.random((rows, E)) < 0.7)
+        on[np.arange(rows), end - 1] = True
+    else:
+        on = rng.random((rows, E)) < 0.8
+    if pattern == "empty_slot":
+        on[slot == 1] = False
+    if pattern in ("repeats", "holes"):
+        if np.issubdtype(g_dt, np.floating):
+            val = rng.standard_normal((rows, E))
+        else:
+            val = rng.choice([-3, -2, 2, 3], (rows, E))
+    else:
+        val = np.ones((rows, E))
+    return xyc, np.where(on, val, 0).astype(g_dt)
+
+
+def pool_walk_case(kind, pairing, pattern, E, seed, tiles="ones", N=4,
+                   T=3, negative=True):
+    """Numpy inputs of one pool launch for a gate pattern.
+
+    ``kind`` "batched" returns ``(v, w, xyc, gate, stride)`` for
+    ``event_pool_batched`` (``pairing`` one of ``PAIRINGS``); "window"
+    returns ``(v, w, xyc, gate, alive, kwargs)`` for ``event_pool_window``
+    (``pairing`` one of ``WINDOW_PAIRINGS``), with slot 1 frozen at its
+    last timestep and slot 2 at its second, and ``tiles`` "ones" (an
+    all-hot bitmap) or "sparse" (events in the top-left third, the bitmap
+    `window_tile_maps` would propagate from them, starting membranes
+    below threshold).  Weights are unquantised in f32.
+
+    ``negative`` False keeps coordinates non-negative: the reference's
+    contract has none (its oracle wraps a negative index, its Pallas
+    kernel clamps the row and drops the channel), while the port drops
+    the event; the JAX parity cases pass False.
+    """
+    rng = np.random.default_rng(seed)
+    H, W, C = POOL_WALK_GEOMETRY
+    s = 2
+    slab = (N, H // s, W // s, C)
+    if kind == "batched":
+        v, w = _arrays(rng, slab, (C,), pairing)
+        xyc, gate = _gate_pattern(rng, pattern, N, E, (H, W, C),
+                                  np.arange(N), PAIRINGS[pairing][2],
+                                  negative)
+        return v, w, xyc, gate, s
+    v_dt, w_dt, g_dt, _ = WINDOW_PAIRINGS[pairing]
+    lif = WINDOW_LIF[pairing]
+    hi = (H // 3, W // 3, C) if tiles == "sparse" else (H, W, C)
+    xyc, gate = _gate_pattern(rng, pattern, N * T, E, hi,
+                              np.arange(N * T) // T, g_dt, negative)
+    xyc, gate = xyc.reshape(N, T, E, 3), gate.reshape(N, T, E)
+    alive = np.ones((N, T), np.float32)
+    alive[1, -1] = alive[2, 1] = 0.0
+    top = lif.threshold - (1 if pairing == "native" else 0.1)
+    if pairing == "f32":
+        v = rng.uniform(-1.4, top if tiles == "sparse" else 2.5, slab)
+        w = rng.standard_normal((C,))
+    else:
+        v = rng.integers(-127, int(top) + 1 if tiles == "sparse" else 128,
+                         slab)
+        w = rng.integers(-8, 8, (C,))
+    grid = tile_grid(*slab[1:3])
+    if tiles == "sparse":
+        sites = seed_site_map(_t(xyc.transpose(1, 0, 2, 3)),
+                              _t(gate.transpose(1, 0, 2)), (H, W))
+        bitmap = sites_to_tiles(dilate_pool(sites, s, slab[1:3]),
+                                grid).numpy()
+        assert bitmap.sum() < bitmap.size, "tiles should be mixed"
+    else:
+        bitmap = np.ones((N, grid[0], grid[1]), np.int32)
+    kw = {"lif": lif, "native": pairing == "native", "stride": s,
+          "tiles": bitmap}
+    return v.astype(v_dt), w.astype(w_dt), xyc, gate, alive, kw
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels against their plain versions (card only)
 # ---------------------------------------------------------------------------
 
@@ -410,7 +561,8 @@ def test_cuda_kernel_matches_plain(cuda, kind, pairing):
                                         ("pool", None), ("pool", "sparse"),
                                         ("fc", None)])
 def test_cuda_window_kernel_matches_plain(cuda, kind, tiles, pairing):
-    # E > the kernels' 128-event stage: more than one chunk per timestep
+    # E > the conv and fc kernels' 128-event stage: more than one chunk
+    # per timestep (the pool walk's stages: test_cuda_pool_walk_*)
     v, w, xyc, gate, alive, kw = window_case(kind, pairing, tiles, 10, N=4,
                                              T=4, E=200)
     if kw.get("tiles") is not None:
@@ -424,6 +576,71 @@ def test_cuda_window_kernel_matches_plain(cuda, kind, tiles, pairing):
     assert LAUNCHES[f"event_{kind}_window"] == before + 1
     for g, x in zip(got, want):
         assert g.dtype == x.dtype and torch.equal(g, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", GATE_PATTERNS)
+@pytest.mark.parametrize("E", POOL_WALK_E)
+@pytest.mark.parametrize("kind,pairing,tiles", [
+    ("batched", p, None) for p in PAIRINGS] + [
+    ("window", p, t) for p in WINDOW_PAIRINGS for t in ("ones", "sparse")])
+def test_cuda_pool_walk_matches_plain(cuda, kind, pairing, tiles, E,
+                                      pattern):
+    # the pool kernels walk only up to each row's last gated event and
+    # only the events their block owns; the plain version (the wrapper on
+    # CPU copies) walks the list as the reference does
+    case = pool_walk_case(kind, pairing, pattern, E, 31, tiles=tiles)
+    if kind == "batched":
+        v, w, xyc, gate, s = case
+        fn, kw = event_pool_batched, {"stride": s,
+                                      "out_dtype": _torch_out(pairing)}
+        arrays = (v, w, xyc, gate)
+    else:
+        v, w, xyc, gate, alive, kw = case
+        fn = event_pool_window
+        arrays = (v, w, xyc, gate, alive)
+    args = [_t(a) for a in arrays]
+    kw_cpu = {k: (_t(x) if k == "tiles" else x) for k, x in kw.items()}
+    kw_dev = {k: (x.to(cuda) if k == "tiles" else x)
+              for k, x in kw_cpu.items()}
+    name = f"event_pool_{kind}"
+    before = LAUNCHES[name]
+    got = fn(*[a.to(cuda) for a in args], **kw_dev)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    want = fn(*args, **kw_cpu)
+    for g, x in zip(_as_tuple(got), _as_tuple(want)):
+        assert g.dtype == x.dtype and torch.equal(g.cpu(), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["batched", "window"])
+def test_cuda_pool_large_slab_matches_plain(cuda, kind):
+    # a 640x480 sensor pooled by 2: 153600 sites a slot, past 8 blocks of
+    # 64 owned sites a thread, so 16 blocks share the slot
+    rng = np.random.default_rng(33)
+    N, T, E, Ho, Wo, C = 2, 2, 3000, 240, 320, 2
+    assert pool_blocks_per_slot(Ho * Wo * C) == 16
+    xyc = np.stack([rng.integers(0, 2 * Ho, (N, T, E)),
+                    rng.integers(0, 2 * Wo, (N, T, E)),
+                    rng.integers(0, C, (N, T, E))], -1).astype(np.int32)
+    gate = rng.standard_normal((N, T, E)).astype(np.float32)
+    gate[rng.random((N, T, E)) < 0.3] = 0
+    v = rng.standard_normal((N, Ho, Wo, C)).astype(np.float32)
+    w = rng.standard_normal((C,)).astype(np.float32)
+    if kind == "batched":
+        fn, arrays, kw = event_pool_batched, (v, w, xyc[:, 0], gate[:, 0]), \
+            {"stride": 2}
+    else:
+        fn, arrays = event_pool_window, (v, w, xyc, gate,
+                                         np.ones((N, T), np.float32))
+        kw = {"lif": WINDOW_LIF["f32"], "stride": 2}
+    args = [_t(a) for a in arrays]
+    got = fn(*[a.to(cuda) for a in args], **kw)
+    want = fn(*args, **kw)
+    torch.cuda.synchronize()
+    for g, x in zip(_as_tuple(got), _as_tuple(want)):
+        assert g.dtype == x.dtype and torch.equal(g.cpu(), x)
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,8 @@ from repro_torch.core.lif import LifParams
 from repro_torch.core.policies import ExecutionPolicy
 from repro_torch.core.sne_net import SNNSpec, tiny_net
 from repro_torch.kernels import window_common as wc
-from test_torch_kernels import WINDOW_FNS, window_case
+from test_torch_kernels import (GATE_PATTERNS, WINDOW_FNS, pool_walk_case,
+                                window_case)
 
 torch.set_num_threads(1)
 JAX_WINDOW = {"conv": jconv_window, "pool": jpool_window, "fc": jfc_window}
@@ -90,6 +91,22 @@ def test_window_plain_matches_jax(kind, tiles, pairing):
         _eq(a, b)
     if tiles == "sparse":       # cold tiles really took the decay path
         assert (mine[1] == 0).any() and mine[1].any()
+
+
+@pytest.mark.parametrize("pattern", GATE_PATTERNS)
+@pytest.mark.parametrize("pairing", ["f32", "native"])
+@pytest.mark.parametrize("tiles", ["ones", "sparse"])
+def test_pool_window_gate_patterns_match_jax(tiles, pairing, pattern):
+    # the gate patterns the CUDA pool walk is held to on the card
+    v, w, xyc, gate, alive, kw = pool_walk_case(
+        "window", pairing, pattern, 40, 23, tiles=tiles, negative=False)
+    mine = WINDOW_FNS["pool"][0](*map(_t, (v, w, xyc, gate, alive)),
+                                 **dict(kw, tiles=_t(kw["tiles"])))
+    jkw = dict(kw, lif=_jlif(kw["lif"]), tiles=jnp.asarray(kw["tiles"]))
+    ref = jpool_window(*map(jnp.asarray, (v, w, xyc, gate, alive)),
+                       use_pallas=False, **jkw)
+    for a, b in zip(mine, ref):
+        _eq(a, b)
 
 
 # ---------------------------------------------------------------------------
