@@ -14,8 +14,9 @@ non-zero):
 2. each CUDA kernel against its plain PyTorch version on the card, bitwise
    (``torch.equal``), with kernel and plain times, the kernel's device-only
    time (``device_ms``, from the profiler) and the least time the card
-   could take (``bound_ms``); the two pool kernels also on a holed and an
-   empty-slot gate pattern of the same events:
+   could take (``bound_ms``); the pool kernels, the conv window kernel
+   and the megakernel also on a holed and an empty-slot gate pattern of
+   the same events:
    a. the three per-step scatters at the Fig. 6 layer shapes (8 slots),
       under every dtype pairing, beside PyTorch's library route to the
       same slab (checked against the kernel to float32 rounding);
@@ -27,7 +28,8 @@ non-zero):
       torch ops, T times) and the per-step CUDA path for the same window;
    c. the fused-network megakernel on the same real window, whole network,
       both pairings, sparse and all-ones bitmaps, beside the port's
-      fused-window lowering and PyTorch's route on that window; and the
+      fused-window lowering and PyTorch's route on that window (and on the
+      gate patterns of its layer-0 events, all-ones bitmaps); and the
       fused LIF kernel on the conv1 slab's shape and an odd size, dt 0, 1
       and 5, clip on and off;
 3. the trained tiny checkpoint served through the port's engine under
@@ -184,6 +186,13 @@ def _as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
 
 
+def _flat(out) -> list:
+    """The tensors of a kernel's result, nested tuples flattened."""
+    if isinstance(out, tuple):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
 def _gate_variants(gate, seed: int) -> dict:
     """Gate patterns beyond the main path's gated prefix, on its events:
     ``holed`` (half the gated events switched off, and in every other slot
@@ -201,15 +210,16 @@ def _gate_variants(gate, seed: int) -> dict:
     return {"holed": holed, "empty_slot": empty}
 
 
-def _pattern_rows(name, layer, pairing, gate, call, seed) -> list:
-    """A pool kernel on the :func:`_gate_variants` of its main-path gates,
+def _pattern_rows(name, layer, pairing, gate, call, seed, bound) -> list:
+    """A kernel on the :func:`_gate_variants` of its main-path gates,
     bitwise against its plain version; ``call(which, g)`` runs the kernel
-    (``"kern"``) or the plain version (``"plain"``) on gates ``g``."""
+    (``"kern"``) or the plain version (``"plain"``) on gates ``g``, and
+    ``bound(g)`` gives the least time for that work, ``(ms, bound_by)``."""
     import torch
     rows = []
     for pattern, g in _gate_variants(gate, seed).items():
         kern, plain = partial(call, "kern", g), partial(call, "plain", g)
-        got, want = _as_tuple(kern()), _as_tuple(plain())
+        got, want = _flat(kern()), _flat(plain())
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             if a.dtype != b.dtype or not torch.equal(a, b):
@@ -217,14 +227,17 @@ def _pattern_rows(name, layer, pairing, gate, call, seed) -> list:
                 raise AssertionError(f"{name} layer {layer} {pairing} "
                                      f"{pattern}: kernel != plain (max "
                                      f"|diff| {diff})")
+        bound_ms, bound_by = bound(g)
         row = {"kernel": name, "layer": layer, "pairing": pairing,
                "pattern": pattern, "main": False,
                "gated_events": int((g != 0).sum()), "ms": cuda_ms(kern, 20),
-               "device_ms": device_ms(kern, name), "max_abs_err": 0.0}
+               "device_ms": device_ms(kern, name), "bound_ms": bound_ms,
+               "bound_by": bound_by, "max_abs_err": 0.0}
         rows.append(row)
         log(f"  {name:20s} layer {layer} {pairing:6s} {pattern:10s} "
             f"gated={row['gated_events']:6d}  kernel {row['ms']:.4f} ms  "
-            f"device {_ms_text(row['device_ms'])}  equal")
+            f"device {_ms_text(row['device_ms'])}  bound {bound_ms:.5f} ms "
+            f"({bound_by})  equal")
     return rows
 
 
@@ -445,8 +458,10 @@ def phase_kernels(program, dev) -> list:
                     fn = (event_pool_batched if which == "kern"
                           else event_pool_batched_ref)
                     return fn(v, w, xyc, g, s, out)
+                def bound(g, op=op, v=v, w=w, xyc=xyc, out=out_dtype):
+                    return _bound(op, v, w, xyc, g, out)
                 rows += _pattern_rows(name, op.index, pairing, gate, call,
-                                      op.index)
+                                      op.index, bound)
     torch.cuda.synchronize()
     return rows
 
@@ -664,14 +679,21 @@ def phase_window_kernels(spec, qn, dev):
                     f"{_ms_text(row['device_ms'])}  plain {row['plain_ms']:.2f} ms"
                     f"{lib_txt}  bound {bound_ms:.5f} ms ({bound_by})  "
                     f"equal")
-            if kind == "pool":
+            if kind != "fc":
+                # the conv and pool walks on holed and empty-slot gates;
                 # the variants may gate padding on: an all-ones bitmap
+                ones = torch.ones_like(tiles)
+
                 def call(which, g, args=(vp, p.w, x_k), alive=alive,
-                         kw=dict(kw, tiles=torch.ones_like(tiles))):
-                    fn = fns["pool"][0 if which == "kern" else 1]
-                    return fn(*args, g, alive, **kw)
+                         kw=dict(kw, tiles=ones), fn=fns[kind]):
+                    return fn[0 if which == "kern" else 1](*args, g, alive,
+                                                           **kw)
+
+                def bound(g, op=op, vp=vp, w=p.w, xyc=xyc, alive=alive,
+                          ones=ones, acc=acc):
+                    return _window_bound(op, vp, w, xyc, g, alive, ones, acc)
                 rows += _pattern_rows(name, op.index, pairing, gate_k, call,
-                                      10 + op.index)
+                                      10 + op.index, bound)
     torch.cuda.synchronize()
     return rows, captured
 
@@ -686,11 +708,9 @@ def _network_bound(layer_windows, launch, acc_dtype):
     routes on the same window, which are the megakernel's) only what
     crosses device memory: every slab in and out and the weights; layer
     0's gated coordinates, gates and liveness; the bitmaps; the last
-    layer's frames; the counts and drops.  The bound assumes the routed
-    events and inner frames stay on chip: the current kernel moves each
-    routed event through its device-memory ring as one int32, written
-    once and read once, which this bound leaves out (a lower bound
-    still).  Every layer's operations."""
+    layer's frames; the counts and drops.  The routed events and inner
+    frames stay on chip (the kernel keeps them in its cluster's shared
+    memory).  Every layer's operations."""
     nbytes = ops = 0
     L = len(layer_windows)
     for l, lw in enumerate(layer_windows):
@@ -790,6 +810,32 @@ def phase_network_kernel(captured, dev) -> list:
                 f"{_ms_text(row['device_ms'])}  plain "
                 f"{row['plain_ms']:.2f} ms{extra}  bound {bound_ms:.5f} ms "
                 f"({bound_by})  equal")
+        # holed and empty-slot layer-0 gates, all-ones bitmaps (the
+        # variants may gate padding on); the bound from what the dense
+        # fused-window lowering routes on the same window
+        ones = tuple(torch.ones_like(t) for t in launch.tiles)
+        dense = lp.compile_program(
+            program.spec, program.step_capacities, ExecutionPolicy(
+                dtype_policy=program.dtype_policy,
+                fusion_policy="fused-window", tile_sparsity=False),
+            device=dev)
+        xyc_tm, _, alive_tm, pre_dt = window
+
+        def call(which, g, launch=launch, ones=ones):
+            run = launch._replace(gate=g, tiles=ones)
+            return run.run() if which == "kern" else \
+                run.run(nw_ref.network_window_ref)
+
+        def bound(g, launch=launch, ones=ones, params=params, states=states,
+                  xyc_tm=xyc_tm, alive_tm=alive_tm, pre_dt=pre_dt,
+                  dense=dense, acc=acc):
+            fwd = list(lp.fused_window_layers(
+                params, states, xyc_tm, g.transpose(0, 1).contiguous(),
+                alive_tm, pre_dt, program=dense))
+            return _network_bound(fwd, launch._replace(gate=g, tiles=ones),
+                                  acc)
+        rows += _pattern_rows("network_window", "all", pairing, launch.gate,
+                              call, 40, bound)
     torch.cuda.synchronize()
     return rows
 

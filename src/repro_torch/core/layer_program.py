@@ -15,9 +15,10 @@ lowering:
   sparsity included; L launches per window), with every timestep's FIRE
   frames routed at once.  Bitwise the per-step results.
 * ``"fused-network"`` — the whole program over the whole window in ONE
-  launch (`kernels/network_window`): every layer's membrane in one
-  block's shared memory, spikes routed between layers inside the kernel.
-  Bitwise the per-step results; a program whose slot does not fit
+  launch (`kernels/network_window`): a slot's layers spread over a
+  thread-block cluster, each CTA holding its band of every membrane in
+  shared memory, spikes routed between layers inside the kernel.
+  Bitwise the per-step results; a program whose CTA share does not fit
   :data:`SMEM_BUDGET` warns and runs fused-window (:func:`effective_fusion`).
 
 Two dtype policies, as in the reference: ``"f32-carrier"`` (integers in
@@ -53,8 +54,9 @@ from repro_torch.kernels.event_conv.ops import (event_conv_batched,
 from repro_torch.kernels.event_fc.ops import event_fc_batched, event_fc_window
 from repro_torch.kernels.event_pool.ops import (event_pool_batched,
                                                 event_pool_window)
-from repro_torch.kernels.network_window import (SMEM_BUDGET, NetLayer,
-                                                network_window, smem_layout)
+from repro_torch.kernels.network_window import (CLUSTER, SMEM_BUDGET,
+                                                NetLayer, network_window,
+                                                smem_layout)
 from repro_torch.kernels.window_common import (crop_interior, dilate_conv,
                                                dilate_pool, route_frame,
                                                seed_site_map, sites_to_tiles,
@@ -498,11 +500,11 @@ def _window_step_fused(params: Sequence[EConvParams], states, class_counts,
 # The fused-network lowering: the whole program in ONE launch per window.
 # ---------------------------------------------------------------------------
 
-def _slab_elems(op: LayerOp) -> int:
-    """Elements of one slot's halo-padded membrane slab."""
+def _slab_shape(op: LayerOp) -> Tuple[int, int, int]:
+    """One slot's halo-padded membrane slab, (Hp, Wp, C)."""
     Ho, Wo, Co = op.spec.out_shape
     h = op.halo
-    return (Ho + 2 * h) * (Wo + 2 * h) * Co
+    return (Ho + 2 * h, Wo + 2 * h, Co)
 
 
 def _ring_capacity(program: LayerProgram, index: int) -> int:
@@ -515,15 +517,16 @@ def _ring_capacity(program: LayerProgram, index: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class NetworkWindowPlan:
-    """What one block of the fused-network kernel holds for its slot.
+    """What one CTA of the fused-network kernel holds for its slot.
 
-    Shared memory (``smem_bytes``, the sum of the first five fields; the
-    layout is `kernels.network_window.smem_layout`, the one the launch
-    uses): every layer's accumulator slab, the conv and pool weights, the
-    tile bitmaps, one routed frame at one bit per site, and the event
-    stage with the scan scratch.  Device memory besides the slabs and
-    weights: ``ring_bytes``, the slot's ring of routed events (one int32
-    per event, as wide as the widest boundary).
+    A slot is served by a cluster of ``ctas`` CTAs, each owning a band of
+    rows of every conv and pool slab and a share of every fc layer's
+    columns.  Shared memory of the widest CTA (``smem_bytes``, the sum of
+    the byte fields; the layout is `kernels.network_window.smem_layout`,
+    the one the launch uses): its share of every layer's accumulators with
+    their site masks, the conv and pool weights, the tile bitmaps, its
+    share of a routed frame at one bit per site and its two routed lists
+    (one int32 per event), and the event stage with the scan scratch.
     """
 
     membrane_bytes: int
@@ -531,52 +534,41 @@ class NetworkWindowPlan:
     tile_bytes: int
     frame_bytes: int
     stage_bytes: int
-    ring_bytes: int
+    ctas: int
 
     @property
     def smem_bytes(self) -> int:
-        """One block's shared memory: what must fit the budget."""
+        """One CTA's shared memory: what must fit the budget."""
         return (self.membrane_bytes + self.weight_bytes + self.tile_bytes
                 + self.frame_bytes + self.stage_bytes)
 
 
 @functools.lru_cache(maxsize=64)
 def network_window_plan(program: LayerProgram) -> NetworkWindowPlan:
-    """Price one slot of the fused-network kernel on the card.
+    """Price one slot of the fused-network kernel on the card, per CTA.
 
     Counterpart of the reference's plan, re-derived for Hopper: the
     reference prices a TPU grid step's VMEM, schedule and I/O blocks
-    included; here only what one block keeps in shared memory counts
-    against the budget (the schedule, the fc matrices, the last layer's
-    frames and the ring stay in device memory), and nothing depends on
+    included; here only what one CTA of the slot's cluster keeps in shared
+    memory counts against the budget (the schedule, the fc matrices and
+    the last layer's frames stay in device memory), and nothing depends on
     the window's length.
     """
     ops = program.ops
     w_isz = torch.empty((), dtype=scatter_dtypes(ops[0])[2]).element_size()
-    weights = []
-    for op in ops:
-        spec = op.spec
-        if spec.kind == "conv":
-            weights.append(spec.kernel ** 2 * spec.in_shape[2]
-                           * spec.out_channels)
-        else:       # pool: one weight per channel; fc: in device memory
-            weights.append(spec.in_shape[2] if spec.kind == "pool" else 0)
-    lay = smem_layout([_slab_elems(op) for op in ops], weights,
-                      [h * w * c for h, w, c in
-                       (op.spec.out_shape for op in ops)], w_isz)
-    ring = max((_ring_capacity(program, i) for i in range(1, len(ops))),
-               default=1)
+    lay = smem_layout(_net_layers(program),
+                      tuple(_slab_shape(op) for op in ops), w_isz)
     return NetworkWindowPlan(
         membrane_bytes=lay.membrane_bytes, weight_bytes=lay.weight_bytes,
         tile_bytes=lay.tile_bytes, frame_bytes=lay.frame_bytes,
-        stage_bytes=lay.stage_bytes, ring_bytes=4 * ring)
+        stage_bytes=lay.stage_bytes, ctas=CLUSTER)
 
 
 def effective_fusion(program: LayerProgram) -> str:
     """The lowering :func:`window_step` really runs for ``program``.
 
     ``"fused-network"`` becomes ``"fused-window"`` when one slot's
-    :func:`network_window_plan` does not fit :data:`SMEM_BUDGET` (the
+    :func:`network_window_plan` does not fit :data:`SMEM_BUDGET` per CTA (the
     H100's).  :func:`window_step` and the engine's launch accounting both
     ask this one predicate.
     """
@@ -660,9 +652,9 @@ def _window_step_network(params: Sequence[EConvParams], states, class_counts,
         plan = network_window_plan(program)
         warnings.warn(
             f"fused-network window needs {plan.smem_bytes} bytes of shared "
-            f"memory per block (membranes {plan.membrane_bytes} + weights "
+            f"memory per CTA (membranes {plan.membrane_bytes} + weights "
             f"{plan.weight_bytes} + tile bitmaps {plan.tile_bytes} + routed "
-            f"frame {plan.frame_bytes} + event stage {plan.stage_bytes}) > "
+            f"frames {plan.frame_bytes} + event stage {plan.stage_bytes}) > "
             f"budget {SMEM_BUDGET}; falling back to the fused-window lowering "
             f"({len(program.ops)} launches per window)")
         return _window_step_fused(params, states, class_counts, ev_xyc,

@@ -19,60 +19,94 @@
 // the accumulator dtype, every entry once (zeros for cold tiles and frozen
 // timesteps).
 //
-// What bounds it on the card: as the per-step conv kernel, the serial chain
-// of events per block (two events' patches overlap and float addition is
-// not associative), plus one synchronisation per sweep.  The bytes (slab in
-// and out once, T spike frames, the events) are far below what the chain
-// costs.
+// What bounds it on the card: the serial chain of events per site (two
+// events' patches overlap and float addition is not associative), the
+// block barriers between the stages of a timestep's walk, and how many SMs
+// the launch keeps busy.  The bytes (slab in and out once, T spike frames,
+// the gated events) are far below what those cost.
 //
-// Design: one block per (slot, output-channel block), K*K*co_blk threads.
-// The block's slab slice stays in shared memory for the whole window, read
-// from and written to device memory once, and so do its weights (flipped
-// while they are staged).  Each thread owns one (i, j, co) patch offset for
-// the event walk: per event every thread does one shared-memory
-// read-modify-write and the block synchronises, which keeps every site's
-// updates in event order without float atomics.  The sweeps (leak; clip,
-// fire, reset and clamp) give each slab element to one thread by a fixed
-// stride, the same in every sweep, so a sweep needs no barrier before the
-// next one by the same owner.  `alive` is one value per block and timestep,
-// so a frozen timestep is skipped by the whole block.
+// Design: the ordered walk of conv_walk.cuh.  One block per (slot, band,
+// channel block): `event_conv/ops.py::conv_window_plan` gives each slot
+// enough bands of at most band_rows slab rows that the slots fill the
+// card, and keeps all Co channels in a block unless shared memory forces
+// a channel block.  A slot's rows are dealt to its bands in turn (band y
+// owns rows y, y + bands, ...), so the rows where a frame's events gather
+// spread over every band.  The band's sites stay in shared memory for the
+// whole window (read from device memory once, written once).  Each
+// timestep the block reads the gate row once, stops at the last gated
+// event and keeps, in list order, only the events whose patch meets one
+// of its rows; each (row, channel) lane of the band, in runs of kSeg
+// sites a thread, walks that list and applies, in order, the adds of the
+// events that cover its sites, with no barrier between events.  The
+// sweeps (leak; clip, fire, reset, clamp; the cold-tile settle) run over
+// each run's sites by the run's owner, so they need no barrier either.
+// `alive` is one value per block and timestep, so a frozen timestep is
+// skipped by the whole block.
+#include <algorithm>
+
+#include "conv_walk.cuh"
 #include "lif_common.cuh"
 
 namespace {
 
+using sne::conv::Band;
+using sne::conv::kSeg;
+
+constexpr int kPerLane = 4;      // events a thread filters per stage
+constexpr int kMinThreads = 256; // threads that filter, even for few lanes
+constexpr int kMaxThreads = 512;
+
+// threads of a block whose band has `runs` runs (a multiple of 32; a
+// thread owns several runs past kMaxThreads)
+int block_threads(int runs) {
+  return std::min(kMaxThreads, std::max(kMinThreads, (runs + 31) / 32 * 32));
+}
+
+// The block's dynamic shared memory: the kept list (kPerLane events a
+// thread, 16 bytes each), the band's sites, the weights, the hot bits, the
+// warp partials and the bitmap.
+template <typename Acc>
+size_t smem_bytes(const Band& b, int threads) {
+  return (size_t)16 * kPerLane * threads +
+         sizeof(Acc) * ((size_t)b.Wp * b.lanes +
+                        (size_t)b.K * b.K * b.Ci * b.C) +
+         sizeof(uint32_t) * b.rows * b.words +
+         sizeof(int) * (32 + sne::kMaxTiles);
+}
+
 template <typename VS, typename Wt, typename Acc, bool kNative>
-__global__ void event_conv_window_kernel(
+__global__ void __launch_bounds__(kMaxThreads) event_conv_window_kernel(
     const VS* __restrict__ v, const Wt* __restrict__ w,
     const int32_t* __restrict__ ev, const Acc* __restrict__ gate,
     const float* __restrict__ alive, const int32_t* __restrict__ tiles,
     VS* __restrict__ v_out, Acc* __restrict__ s_out, int Hp, int Wp, int Co,
-    int K, int Ci, int halo, int T, int E, int co_blk, int nTx, int nTy,
-    int th, int tw, sne::LifArgs p) {
+    int K, int Ci, int halo, int T, int E, int co_blk, int band_rows,
+    int nTx, int nTy, int th, int tw, sne::LifArgs p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int slab_elems = Hp * Wp * co_blk;
-  const int w_elems = K * K * Ci * co_blk;
-  Acc* slab = reinterpret_cast<Acc*>(smem_raw);
-  Acc* wsh = slab + slab_elems;
-  Acc* ev_g = wsh + w_elems;
-  int* ev_x = reinterpret_cast<int*>(ev_g + sne::kChunk);
-  int* ev_y = ev_x + sne::kChunk;
-  int* ev_c = ev_y + sne::kChunk;
-  int* hot = ev_c + sne::kChunk;
-
   const int n = blockIdx.x;
-  const int co0 = blockIdx.y * co_blk;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
+  // the slab's rows are dealt to the slot's blocks in turn: block y
+  // owns rows y, y + gridDim.y, ... (at most band_rows of them)
+  const int r0 = blockIdx.y, step = gridDim.y;
+  const int co0 = blockIdx.z * co_blk;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const Band b = Band::make(Hp, Wp, co_blk, K, Ci, halo, r0, step,
+                            (Hp - 1 - r0) / step + 1);
+  const Band widest = Band::make(Hp, Wp, co_blk, K, Ci, halo, 0, 1,
+                                 band_rows);
+  const int L = b.lanes;
+  int4* kept = reinterpret_cast<int4*>(smem_raw);
+  Acc* mem = reinterpret_cast<Acc*>(kept + kPerLane * nthr);
+  Acc* wsh = mem + (size_t)Wp * widest.lanes;
+  uint32_t* hot_bits = reinterpret_cast<uint32_t*>(wsh + K * K * Ci * co_blk);
+  int* red = reinterpret_cast<int*>(hot_bits + band_rows * b.words);
+  int* hot = red + 32;
+
   const int Ho = Hp - 2 * halo, Wo = Wp - 2 * halo;
   const size_t v_base = (size_t)n * Hp * Wp * Co;
   const int n_tiles = nTx * nTy;
-
-  if (tid < n_tiles) hot[tid] = tiles ? tiles[(size_t)n * n_tiles + tid] : 1;
-  for (int i = tid; i < slab_elems; i += nthr) {
-    const int q = i / co_blk, co = i - q * co_blk;
-    slab[i] = static_cast<Acc>(v[v_base + (size_t)q * Co + co0 + co]);
-  }
-  for (int i = tid; i < w_elems; i += nthr) {
+  for (int i = tid; i < n_tiles; i += nthr)
+    hot[i] = tiles ? tiles[(size_t)n * n_tiles + i] : 1;
+  for (int i = tid; i < K * K * Ci * co_blk; i += nthr) {
     // wsh[((ki*K + kj)*Ci + c)*co_blk + co] = W[K-1-ki, K-1-kj, c, co0+co]
     const int r = i / co_blk, co = i - r * co_blk;
     const int c = r % Ci, kk = r / Ci;
@@ -80,115 +114,121 @@ __global__ void event_conv_window_kernel(
     const int src = ((K - 1 - ki) * K + (K - 1 - kj)) * Ci + c;
     wsh[i] = static_cast<Acc>(w[(size_t)src * Co + co0 + co]);
   }
-  const int ki = tid / (K * co_blk);
-  const int kj = (tid / co_blk) % K;
-  const int co = tid % co_blk;
-  const bool owns = tid < K * K * co_blk;
-  __syncthreads();
-
-  // interior coordinates and tile of slab element i, or -1 for the halo
-  auto interior_tile = [&](int i, int& xi, int& yi) {
-    const int q = i / co_blk;
-    xi = q / Wp - halo;
-    yi = q % Wp - halo;
-    if (xi < 0 || xi >= Ho || yi < 0 || yi >= Wo) return -1;
-    return sne::tile_of(xi, yi, th, tw, nTy);
+  // the band's sites, from device memory once (coalesced over channels)
+  auto gidx = [&](int l, int y) {
+    const int q = l / co_blk;
+    return v_base + ((size_t)(r0 + q * step) * Wp + y) * Co + co0 +
+           (l - q * co_blk);
   };
+  for (int i = tid; i < Wp * L; i += nthr) {
+    const int y = i / L, l = i - y * L;
+    mem[i] = static_cast<Acc>(v[gidx(l, y)]);
+  }
+  __syncthreads();                            // the bitmap is in
+  sne::conv::band_hot_bits(b, hot, th, tw, nTy, hot_bits);
+  __syncthreads();                            // the hot bits are in
 
+  // the spike frame entry of interior site (lane l, column y)
+  auto sidx = [&](int l, int y) {
+    const int q = l / co_blk;
+    return ((size_t)(r0 + q * step - halo) * Wo + (y - halo)) * Co + co0 +
+           (l - q * co_blk);
+  };
   int n_alive = 0;
   for (int t = 0; t < T; ++t) {
     const size_t nt = (size_t)n * T + t;
     Acc* s_t = s_out + nt * Ho * Wo * Co;
     if (!(alive[nt] > 0.f)) {                 // uniform across the block
-      for (int i = tid; i < Ho * Wo * co_blk; i += nthr) {
-        const int q = i / co_blk;
-        s_t[(size_t)q * Co + co0 + (i - q * co_blk)] = Acc(0);
+      for (int u = tid; u < b.runs; u += nthr) {
+        int l, y0;
+        b.run(u, l, y0);
+        if (!b.row_inside(r0 + l / co_blk * step)) continue;
+        for (int y = y0; y < min(y0 + kSeg, Wp); ++y)
+          if (b.col_inside(y)) s_t[sidx(l, y)] = Acc(0);
       }
       continue;
     }
     ++n_alive;
-    for (int i = tid; i < slab_elems; i += nthr) {
-      int xi, yi;
-      const int tile = interior_tile(i, xi, yi);
-      if (tile >= 0 && hot[tile]) slab[i] = sne::leak_step(slab[i], p);
+    // leak: each run's owner its hot sites
+    for (int u = tid; u < b.runs; u += nthr) {
+      int l, y0;
+      b.run(u, l, y0);
+      for (int y = y0; y < min(y0 + kSeg, Wp); ++y)
+        if (sne::conv::hot_bit(b, hot_bits, l, y))
+          mem[y * L + l] = sne::leak_step(mem[y * L + l], p);
     }
     const int32_t* evt = ev + nt * E * 3;
     const Acc* gt = gate + nt * E;
-    for (int base = 0; base < E; base += sne::kChunk) {
-      const int cnt = min(sne::kChunk, E - base);
-      for (int i = tid; i < cnt; i += nthr) {
-        const int32_t* e = evt + (size_t)(base + i) * 3;
-        // clamp like the reference's dynamic_slice, so no address escapes
-        ev_x[i] = min(max(e[0], 0), Hp - K);
-        ev_y[i] = min(max(e[1], 0), Wp - K);
-        ev_c[i] = min(max(e[2], 0), Ci - 1);
-        ev_g[i] = gt[base + i];
-      }
-      __syncthreads();                        // leak and stage are done
-      for (int i = 0; i < cnt; ++i) {
-        const Acc g = ev_g[i];
-        if (g == Acc(0)) continue;            // uniform across the block
-        if (owns) {
-          const int idx = ((ev_x[i] + ki) * Wp + (ev_y[i] + kj)) * co_blk + co;
-          const Acc wv = wsh[((ki * K + kj) * Ci + ev_c[i]) * co_blk + co];
-          slab[idx] = sne::add_rn(slab[idx], sne::mul_rn(wv, g));
+    const int n_walk = sne::conv::walk_end(gt, E, red);   // also: leak done
+    for (int base = 0; base < n_walk; base += kPerLane * nthr) {
+      if (base > 0) __syncthreads();         // the last stage is walked
+      const int cnt = min(kPerLane * nthr, n_walk - base);
+      const int n_kept = sne::conv::compact<kPerLane>(
+          cnt,
+          [&](int i, int4& e) {
+            const int32_t* x = evt + (size_t)(base + i) * 3;
+            return sne::conv::conv_event(b, __ldg(x), __ldg(x + 1),
+                                         __ldg(x + 2), gt[base + i], e);
+          },
+          kept, red);
+      sne::conv::walk_runs(b, mem, wsh, kept, n_kept);
+    }
+    // clip, fire, reset (hot sites), spikes of the interior, clamp: each
+    // run's owner, right after its walk
+    for (int u = tid; u < b.runs; u += nthr) {
+      int l, y0;
+      b.run(u, l, y0);
+      const bool inside = b.row_inside(r0 + l / co_blk * step);
+      for (int y = y0; y < min(y0 + kSeg, Wp); ++y) {
+        Acc a = mem[y * L + l];
+        if (inside && b.col_inside(y)) {
+          Acc spike = Acc(0);
+          if (sne::conv::hot_bit(b, hot_bits, l, y))
+            spike = sne::clip_fire_reset(a, p);
+          s_t[sidx(l, y)] = spike;
         }
-        __syncthreads();
+        if (kNative) a = sne::saturate_int8(a);
+        mem[y * L + l] = a;
       }
-      __syncthreads();                        // the stage may be refilled
-    }
-    for (int i = tid; i < slab_elems; i += nthr) {
-      int xi, yi;
-      const int tile = interior_tile(i, xi, yi);
-      Acc a = slab[i];
-      if (tile >= 0) {
-        Acc spike = Acc(0);
-        if (hot[tile]) spike = sne::clip_fire_reset(a, p);
-        s_t[((size_t)xi * Wo + yi) * Co + co0 + (i % co_blk)] = spike;
-      }
-      if (kNative) a = sne::saturate_int8(a);
-      slab[i] = a;
     }
   }
-  for (int i = tid; i < slab_elems; i += nthr) {
-    int xi, yi;
-    const int tile = interior_tile(i, xi, yi);
-    Acc a = slab[i];
-    if (tile >= 0 && p.reset_mode == 0 && !hot[tile])
-      a = sne::idle_decay(a, p, n_alive);
-    const int q = i / co_blk;
-    v_out[v_base + (size_t)q * Co + co0 + (i - q * co_blk)] =
-        static_cast<VS>(a);
+  // settle cold interior sites, write every site back: each run's owner
+  for (int u = tid; u < b.runs; u += nthr) {
+    int l, y0;
+    b.run(u, l, y0);
+    const bool inside = b.row_inside(r0 + l / co_blk * step);
+    for (int y = y0; y < min(y0 + kSeg, Wp); ++y) {
+      Acc a = mem[y * L + l];
+      if (p.reset_mode == 0 && inside && b.col_inside(y) &&
+          !sne::conv::hot_bit(b, hot_bits, l, y))
+        a = sne::idle_decay(a, p, n_alive);
+      v_out[gidx(l, y)] = static_cast<VS>(a);
+    }
   }
-}
-
-template <typename Acc>
-size_t smem_bytes(int Hp, int Wp, int K, int Ci, int co_blk) {
-  return sizeof(Acc) * ((size_t)Hp * Wp * co_blk +
-                        (size_t)K * K * Ci * co_blk + sne::kChunk) +
-         sizeof(int) * (3 * sne::kChunk + sne::kMaxTiles);
 }
 
 template <typename VS, typename Wt, typename Acc>
 cudaError_t launch(const void* v, const void* w, const void* ev,
                    const void* gate, const void* alive, const void* tiles,
                    void* v_out, void* s_out, int N, int Hp, int Wp, int Co,
-                   int K, int Ci, int halo, int T, int E, int co_blk, int nTx,
-                   int nTy, int th, int tw, sne::LifArgs p,
-                   cudaStream_t stream) {
+                   int K, int Ci, int halo, int T, int E, int co_blk,
+                   int band_rows, int nTx, int nTy, int th, int tw,
+                   sne::LifArgs p, cudaStream_t stream) {
   constexpr bool kNative = sizeof(VS) == 1;
-  const size_t smem = smem_bytes<Acc>(Hp, Wp, K, Ci, co_blk);
+  const Band b = Band::make(Hp, Wp, co_blk, K, Ci, halo, 0, 1, band_rows);
+  const int threads = block_threads(b.runs);
+  const size_t smem = smem_bytes<Acc>(b, threads);
   auto kern = event_conv_window_kernel<VS, Wt, Acc, kNative>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(N, Co / co_blk);
-  kern<<<grid, K * K * co_blk, smem, stream>>>(
+  dim3 grid(N, (Hp + band_rows - 1) / band_rows, Co / co_blk);
+  kern<<<grid, threads, smem, stream>>>(
       static_cast<const VS*>(v), static_cast<const Wt*>(w),
       static_cast<const int32_t*>(ev), static_cast<const Acc*>(gate),
       static_cast<const float*>(alive), static_cast<const int32_t*>(tiles),
       static_cast<VS*>(v_out), static_cast<Acc*>(s_out), Hp, Wp, Co, K, Ci,
-      halo, T, E, co_blk, nTx, nTy, th, tw, p);
+      halo, T, E, co_blk, band_rows, nTx, nTy, th, tw, p);
   return cudaGetLastError();
 }
 
@@ -198,15 +238,15 @@ extern "C" int sne_event_conv_window(
     const void* v, const void* w, const void* ev, const void* gate,
     const void* alive, const void* tiles, void* v_out, void* s_out, int N,
     int Hp, int Wp, int Co, int K, int Ci, int halo, int T, int E,
-    int co_blk, int nTx, int nTy, int th, int tw, int pairing,
-    float threshold, float leak, float clip, int leak_mode, int reset_mode,
-    int has_clip, void* stream) {
+    int co_blk, int band_rows, int nTx, int nTy, int th, int tw,
+    int pairing, float threshold, float leak, float clip, int leak_mode,
+    int reset_mode, int has_clip, void* stream) {
   // launches on the caller's current device, which owns `stream`
   cudaError_t err;
   if (N <= 0 || T <= 0 || E <= 0 || co_blk <= 0 || Co % co_blk != 0 ||
-      K * K * co_blk > 1024 || Hp < K || Wp < K || halo < 0 ||
-      Hp - 2 * halo <= 0 || Wp - 2 * halo <= 0 || nTx <= 0 || nTy <= 0 ||
-      nTx * nTy > sne::kMaxTiles || nTx * nTy > K * K * co_blk || th <= 0 ||
+      band_rows <= 0 || band_rows > Hp || Hp < K || Wp < K || K <= 0 ||
+      Ci <= 0 || halo < 0 || Hp - 2 * halo <= 0 || Wp - 2 * halo <= 0 ||
+      nTx <= 0 || nTy <= 0 || nTx * nTy > sne::kMaxTiles || th <= 0 ||
       tw <= 0)
     return (int)cudaErrorInvalidValue;
   const sne::LifArgs p{threshold, leak, clip, leak_mode, reset_mode,
@@ -214,7 +254,8 @@ extern "C" int sne_event_conv_window(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SNE_CONV_WINDOW_LAUNCH(VS, Wt, Acc)                                  \
   launch<VS, Wt, Acc>(v, w, ev, gate, alive, tiles, v_out, s_out, N, Hp, Wp, \
-                      Co, K, Ci, halo, T, E, co_blk, nTx, nTy, th, tw, p, s)
+                      Co, K, Ci, halo, T, E, co_blk, band_rows, nTx, nTy,    \
+                      th, tw, p, s)
   SNE_DISPATCH_WINDOW_PAIRING(pairing, SNE_CONV_WINDOW_LAUNCH)
 #undef SNE_CONV_WINDOW_LAUNCH
   return (int)err;

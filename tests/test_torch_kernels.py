@@ -38,6 +38,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.event_conv import (event_conv_batched,
                                             event_conv_window,
                                             event_conv_window_ref)
+from repro_torch.kernels.event_conv.ops import conv_window_plan
 from repro_torch.kernels.event_conv.ref import event_conv_batched_ref
 from repro_torch.kernels.event_fc import (event_fc_batched, event_fc_window,
                                           event_fc_window_ref)
@@ -49,7 +50,7 @@ from repro_torch.kernels.event_pool.ops import (MAX_OWNED_PER_THREAD,
                                                 pool_blocks_per_slot)
 from repro_torch.kernels.event_pool.ref import event_pool_batched_ref
 from repro_torch.kernels.lif import lif_fused, lif_fused_ref
-from repro_torch.kernels.network_window import (network_window,
+from repro_torch.kernels.network_window import (CLUSTER, network_window,
                                                 network_window_ref)
 from repro_torch.kernels.window_common import (dilate_conv, dilate_pool,
                                                seed_site_map, sites_to_tiles,
@@ -339,14 +340,19 @@ WINDOW_GEOMETRY = {"conv": ((7, 9, 2), 4), "pool": ((10, 11, 3), 3),
                    "fc": ((2, 3, 2), 5)}
 
 
-def window_case(kind, pairing, tiles, seed, N=3, T=4, E=12):
+def window_case(kind, pairing, tiles, seed, N=3, T=4, E=12,
+                pattern="random"):
     """Numpy inputs of one window launch of ``kind`` and its keywords.
 
     ``tiles`` is None (dense), ``"ones"`` (an all-hot bitmap) or
     ``"sparse"``: events confined to the top-left third, the bitmap
     propagated from them as `window_tile_maps` does, and starting
     membranes below threshold (the serving invariant cold tiles rest on).
-    Slot 1 freezes its last timestep and slot 2 its second.
+    Slot 1 freezes its last timestep and slot 2 its second.  ``pattern``
+    "random" draws unsorted events with 0/1 gates; any of
+    :data:`GATE_PATTERNS` takes events and gates from
+    :func:`_gate_pattern` instead (conv: duplicates, non-unit gates, and
+    coordinates the kernel must clamp).
 
     Returns ``(v, w, xyc, gate, alive, kwargs)``; ``xyc`` is slot-major
     (N, T, E, 3), in halo coordinates for conv; ``kwargs`` holds
@@ -362,6 +368,11 @@ def window_case(kind, pairing, tiles, seed, N=3, T=4, E=12):
                     rng.integers(0, hi[1], (N, T, E)),
                     rng.integers(0, C, (N, T, E))], -1).astype(np.int32)
     gate = (rng.random((N, T, E)) < 0.75).astype(g_dt)
+    if pattern != "random":
+        xyc, gate = _gate_pattern(np.random.default_rng(seed + 1000),
+                                  pattern, N * T, E, (*hi, C),
+                                  np.arange(N * T) // T, g_dt, True)
+        xyc, gate = xyc.reshape(N, T, E, 3), gate.reshape(N, T, E)
     alive = np.ones((N, T), np.float32)
     alive[1, -1] = alive[2 % N, 1] = 0.0
     kw = {"lif": lif, "native": pairing == "native"}
@@ -557,14 +568,29 @@ def test_cuda_kernel_matches_plain(cuda, kind, pairing):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pairing", list(WINDOW_PAIRINGS))
-@pytest.mark.parametrize("kind,tiles", [("conv", None), ("conv", "sparse"),
-                                        ("pool", None), ("pool", "sparse"),
-                                        ("fc", None)])
-def test_cuda_window_kernel_matches_plain(cuda, kind, tiles, pairing):
-    # E > the conv and fc kernels' 128-event stage: more than one chunk
-    # per timestep (the pool walk's stages: test_cuda_pool_walk_*)
-    v, w, xyc, gate, alive, kw = window_case(kind, pairing, tiles, 10, N=4,
-                                             T=4, E=200)
+@pytest.mark.parametrize("kind,tiles,pattern,N,E", [
+    ("conv", None, "random", 4, 200), ("conv", "sparse", "random", 4, 200),
+    ("pool", None, "random", 4, 200), ("pool", "sparse", "random", 4, 200),
+    ("fc", None, "random", 4, 200), ("conv", "ones", "ragged", 4, 2500)] + [
+    ("conv", t, p, n, 200) for t in ("ones", "sparse") for p in GATE_PATTERNS
+    for n in (4, 24) if not (t == "sparse" and p == "outside")])
+def test_cuda_window_kernel_matches_plain(cuda, kind, tiles, pattern, N, E,
+                                          pairing):
+    # E = 200: more than one 128-event chunk of the fc kernel; E = 2500:
+    # more than one 1024-event stage of the conv walk.  At 4
+    # slots each conv band is one slab row; at 24 slots the 11-row slab is
+    # dealt to 4 bands of at most 3 rows (rows 0, 4, 8; 1, 5, 9; 2, 6, 10;
+    # 3, 7), so every patch spans several bands and one band is short; the
+    # 13-column slab leaves the second run of each row half empty.
+    # Unsorted events, duplicates, non-unit gates, holes, an empty slot and
+    # clamped coordinates (GATE_PATTERNS) hold the conv walk's order.
+    v, w, xyc, gate, alive, kw = window_case(kind, pairing, tiles, 10, N=N,
+                                             T=4, E=E, pattern=pattern)
+    if kind == "conv":
+        band_rows, co_blk = conv_window_plan(N, v.shape[1], v.shape[2],
+                                             v.shape[3], w.shape[0],
+                                             w.shape[2])
+        assert (band_rows, co_blk) == ((1, 4) if N == 4 else (3, 4))
     if kw.get("tiles") is not None:
         kw["tiles"] = _t(kw["tiles"]).to(cuda)
     fn, plain = WINDOW_FNS[kind]
@@ -664,15 +690,19 @@ def mini_fig6(n_timesteps: int = 8) -> SNNSpec:
 NETWORK_CAPS = {"tiny": (24, 40, 24), "mini": (24, 16, 24, 8, 4)}
 
 
-def network_case(net, pairing, tiles, seed, N=3, T=4, E=12):
+def network_case(net, pairing, tiles, seed, N=3, T=4, E=12,
+                 pattern="random"):
     """One fused-network launch's inputs on the CPU, as numpy.
 
     ``net`` is ``"tiny"`` (conv first: halo coordinates) or ``"mini"``
     (:func:`mini_fig6`); the f32 pairing keeps float weights unquantized
     (accumulation order visible), the native one runs the quantized net.
-    ``tiles`` None runs dense; ``"sparse"`` confines the events to a corner,
-    starts every membrane below threshold and takes the bitmaps
-    ``window_tile_maps`` propagates.  Liveness is random.
+    ``tiles`` None runs dense; ``"ones"`` passes all-hot bitmaps;
+    ``"sparse"`` confines the events to a corner, starts every membrane
+    below threshold and takes the bitmaps ``window_tile_maps`` propagates.
+    Liveness is random.  ``pattern`` "random" draws unsorted events with
+    0/1 gates; any of :data:`GATE_PATTERNS` (not with sparse bitmaps) takes
+    layer 0's events and gates from :func:`_gate_pattern`.
 
     Returns ``(program, states, weights, xyc, gate, alive, tiles)``; the
     schedule is slot-major (conv: halo coordinates), ``tiles`` a list of
@@ -711,7 +741,17 @@ def network_case(net, pairing, tiles, seed, N=3, T=4, E=12):
                     rng.integers(0, C, (T, N, E))], -1).astype(np.int32)
     gate = (rng.random((T, N, E)) < 0.8).astype(np.float32)
     alive = (rng.random((N, T)) < 0.8).astype(np.float32)
+    if pattern != "random":
+        assert not corner, "sparse bitmaps need the corner's events"
+        xyc, gate = _gate_pattern(np.random.default_rng(seed + 1000),
+                                  pattern, T * N, E, (H, W, C),
+                                  np.arange(T * N) % N,
+                                  np.int32 if native else np.float32, True)
+        xyc, gate = xyc.reshape(T, N, E, 3), gate.reshape(T, N, E)
     bitmaps = None
+    if tiles == "ones":
+        bitmaps = [np.ones((N, *tile_grid(*op.spec.out_shape[:2])[:2]),
+                           np.int32) for op in prog.ops]
     if corner:
         bitmaps = [t.numpy() for t in lp.window_tile_maps(
             prog, _t(xyc), _t(gate))]
@@ -725,14 +765,51 @@ def network_case(net, pairing, tiles, seed, N=3, T=4, E=12):
             gate.transpose(1, 0, 2), alive, bitmaps)
 
 
+def _record_cuts(monkeypatch, layers, slabs):
+    """Spy on the plain version's routing: for every frame whose spikes
+    pass the next layer's cap', the cluster rank (of ``CLUSTER``, as the
+    kernel's ``share_of`` deals rows and columns) whose share holds the
+    first dropped spike.  Returns the list the spy fills."""
+    from repro_torch.kernels.network_window import ref as nw_ref
+    frames = {(Hp - 2 * nl.halo, Wp - 2 * nl.halo, C): nl
+              for nl, (Hp, Wp, C) in zip(layers, slabs)}
+    assert len(frames) == len(layers), "frames must tell the layers apart"
+    cuts, route = [], nw_ref.route_frame
+
+    def spy(s, cap):
+        nl = frames[tuple(s.shape[1:])]
+        Wo, C = s.shape[2:4]
+        for row in (s.reshape(s.shape[0], -1) != 0).cpu().numpy():
+            idx = np.flatnonzero(row)
+            if len(idx) > cap:
+                f = int(idx[cap])
+                if nl.kind == "fc":         # columns in blocks
+                    rank = f // -(-C // CLUSTER)
+                else:                        # slab rows dealt in turn
+                    rank = (f // (Wo * C) + nl.halo) % CLUSTER
+                cuts.append(rank)
+        return route(s, cap)
+    monkeypatch.setattr(nw_ref, "route_frame", spy)
+    return cuts
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("tiles", [None, "sparse"])
+@pytest.mark.parametrize("tiles,pattern,E", [
+    (None, "random", 200), ("sparse", "random", 200),
+    ("ones", "random", 1500)] + [("ones", p, 200) for p in GATE_PATTERNS])
 @pytest.mark.parametrize("pairing", list(WINDOW_PAIRINGS))
 @pytest.mark.parametrize("net", ["tiny", "mini"])
-def test_cuda_network_window_matches_plain(cuda, net, pairing, tiles):
-    # E > the kernel's 128-event stage: more than one chunk per timestep
+def test_cuda_network_window_matches_plain(cuda, monkeypatch, net, pairing,
+                                           tiles, pattern, E):
+    # E = 200 > 128 events; E = 1500 > a CTA's 1024-event stage: more than
+    # one stage of layer 0 per timestep.  Both nets' slabs have rows that
+    # do not divide by the cluster (tiny: conv 16 slab rows, pool 6, fc 4
+    # columns; mini: conv 12 slab rows, fc 3 columns), so some CTAs own
+    # nothing of a layer; tiny runs a conv first on the collector's
+    # unsorted schedule; GATE_PATTERNS give layer 0 duplicates, non-unit
+    # gates, holes, an empty slot and coordinates to clamp or drop.
     prog, states, weights, xyc, gate, alive, bitmaps = network_case(
-        net, pairing, tiles, 12, N=4, T=4, E=200)
+        net, pairing, tiles, 12, N=4, T=4, E=E, pattern=pattern)
     native = pairing == "native"
     acc = torch.int32 if native else torch.float32
     args = ([_t(v).to(cuda) for v in states],
@@ -743,12 +820,17 @@ def test_cuda_network_window_matches_plain(cuda, net, pairing, tiles):
               else [_t(b).to(cuda) for b in bitmaps])
     before = LAUNCHES["network_window"]
     got = network_window(*args, **kw)
+    cuts = _record_cuts(monkeypatch, kw["layers"],
+                        [tuple(v.shape[1:]) for v in states])
     want = network_window_ref(*args, **kw)
     torch.cuda.synchronize()
     assert LAUNCHES["network_window"] == before + 1
     for g, x in zip(got[0] + got[1:], want[0] + want[1:]):
         assert g.dtype == x.dtype and torch.equal(g, x)
     assert int(got[3].sum()) > 0 or tiles == "sparse"
+    if tiles is None:
+        # a routing step whose cap' cut falls inside a later CTA's band
+        assert cuts and max(cuts) >= 1, cuts
 
 
 @pytest.mark.gpu

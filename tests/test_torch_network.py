@@ -9,9 +9,10 @@
 * ``window_step`` under ``"fused-network"`` against the reference's
   (``use_pallas=False``) and against the port's own fused-window lowering,
   two windows back to back with a deferred idle decay;
-* the plan the fallback rule reads: its fields add up, Fig. 6 fits the
-  H100's budget under both policies, and a budget too small warns and
-  runs fused-window with the same bits.
+* the plan the fallback rule reads: one CTA's share of every layer
+  (``smem_layout``, the launch's own), its fields add up, Fig. 6 fits the
+  H100's budget per CTA under both policies, and a budget too small warns
+  and runs fused-window with the same bits.
 
 The served cohort under fused-network is held against the live JAX engine
 in ``test_torch_serve.py``.  The reference runs its ``use_pallas=False``
@@ -237,6 +238,50 @@ def test_undersized_budget_warns_and_stays_bitwise(monkeypatch):
 # the plan
 # ---------------------------------------------------------------------------
 
+# (owned sites, hot-bit words, frame sites) of the widest CTA share of
+# each layer, by hand, rows dealt to the 8 CTAs in turn: tiny conv 16 slab
+# rows -> 2 a CTA of 16 columns x 6 channels, a word of hot bits a row, of
+# its 12 frame rows at most 2; pool 6 rows -> 1 (6 x 6 sites); fc 4
+# columns -> 1.  mini pool 8 rows -> 1 (8 x 2 sites); conv 12 slab rows ->
+# 2 (of 12 x 4), 8 frame rows -> 1 (of 8 x 4); pool 1 row; fc 8 and 3
+# columns -> 1
+SHARES = {"tiny": [(2 * 16 * 6, 2, 2 * 12 * 6), (36, 2, 36), (1, 1, 1)],
+          "mini": [(16, 1, 16), (2 * 12 * 4, 2, 8 * 4), (16, 1, 16),
+                   (1, 1, 1), (1, 1, 1)]}
+
+
+@pytest.mark.parametrize("net", ["tiny", "mini"])
+def test_smem_layout_is_per_cta(net):
+    prog = network_case(net, "f32", None, 0)[0]
+    layers = lp._net_layers(prog)
+    slabs = tuple(lp._slab_shape(op) for op in prog.ops)
+    assert [nw.ops.share_shape(nl, sl) for nl, sl in zip(layers, slabs)] \
+        == SHARES[net]
+    lay = nw.smem_layout(layers, slabs, 4)
+    # regions in order, 16-byte aligned, none overlapping the next
+    offs = [*lay.mem_off, *lay.mask_off,
+            *(o for o in lay.w_off if o >= 0), lay.hot_off, lay.bits_off,
+            lay.list_off, lay.kept_off, lay.tally_off, lay.fcbuf_off]
+    assert offs == sorted(offs) and all(o % 16 == 0 for o in offs)
+    for (mem, words, _), m0, k0 in zip(SHARES[net], lay.mem_off,
+                                       lay.mask_off):
+        assert m0 + 4 * mem <= lay.mask_off[0] and k0 + 4 * words <= \
+            min(o for o in lay.w_off if o >= 0)
+    # a routed list holds the widest share of a frame, or the next cap'
+    caps = [nl.cap for nl in layers[1:]]
+    assert lay.list_cap == max(min(f, c) for (_, _, f), c in
+                               zip(SHARES[net], caps))
+    # two segment counts a CTA-owned frame row, then the two lists
+    assert lay.seg_cap == {"tiny": 2, "mini": 1}[net]
+    assert lay.nseg_cap == (12 if net == "tiny" else 8)
+    assert lay.kept_off - lay.list_off >= 4 * (4 + 2 * lay.list_cap)
+    assert lay.tally_off - lay.kept_off == 16 * nw.ops.PER_LANE * \
+        nw.ops.THREADS
+    # last, the fc walk's staging buffer: every net here has an fc layer
+    assert lay.total == lay.fcbuf_off + 4 * nw.ops.FC_BUF
+    assert lay.total == lp.network_window_plan(prog).smem_bytes
+
+
 @pytest.mark.parametrize("dtype_policy", POLICIES)
 def test_fig6_plan_fits_the_h100_budget(dtype_policy):
     spec = dvs_gesture_net()
@@ -249,12 +294,21 @@ def test_fig6_plan_fits_the_h100_budget(dtype_policy):
     assert plan.smem_bytes == (plan.membrane_bytes + plan.weight_bytes
                                + plan.tile_bytes + plan.frame_bytes
                                + plan.stage_bytes)
-    # 47115 accumulator sites (the last slab's 11 padded to 16 bytes)
-    assert plan.membrane_bytes == 4 * 47115 + 4
-    # conv and pool weights: 5458 of them, 16-byte aligned per layer
+    # one CTA of a cluster of 8 per slot, priced at its widest share:
+    # pool0 4 rows (256 sites), conv1 5 slab rows of 40 x 16, pool1 2 rows
+    # (512), conv2 3 slab rows of 20 x 32, pool2 1 row (256), fc1 64
+    # columns, fc2 2 (padded to 16 bytes); one hot bit a site, in words
+    # (conv: 2 words a row of 40, 1 of 20; each layer's 16-byte aligned)
+    assert plan.ctas == nw.CLUSTER == 8
+    sites = 256 + 5 * 40 * 16 + 512 + 3 * 20 * 32 + 256 + 64 + 4
+    words = 8 + 12 + 16 + 4 + 8 + 4 + 4
+    assert plan.membrane_bytes == 4 * (sites + words)
+    # conv and pool weights, 5458 of them in every CTA, 16-byte aligned
     w_isz = 4 if dtype_policy == "f32-carrier" else 1
     assert 5458 * w_isz <= plan.weight_bytes < 5458 * w_isz + 5 * 16
-    assert plan.frame_bytes == 16384 // 8          # conv1's frame, in bits
-    assert plan.ring_bytes == 4 * 16384            # the widest boundary
+    # conv1's share of the frame in bits (4 of its 32 rows of 32x16 a
+    # CTA), then a count for each of a CTA's 4 rows of a frame, twice, and
+    # two routed lists of as many int32 sites
+    assert plan.frame_bytes == 2048 // 8 + 4 * (8 + 2 * 2048)
     assert plan.smem_bytes <= nw.SMEM_BUDGET == 232_448
     assert lp.effective_fusion(prog) == "fused-network"

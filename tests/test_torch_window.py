@@ -3,7 +3,9 @@
 * each ``*_window`` plain version (what the wrapper runs for CPU tensors)
   against the reference's ``event_*_window(use_pallas=False)``, under
   both dtype pairings, with no bitmap, an all-ones bitmap and a sparse one
-  propagated from events confined to a corner;
+  propagated from events confined to a corner; the pool and conv windows
+  also on the gate patterns their CUDA walks are held to on the card;
+* the conv window kernel's band rule (``conv_window_plan``);
 * every `kernels.window_common` helper against the reference's, on the
   edges that differ between the two libraries: repeated coordinates in
   ``seed_site_map`` (a max, not an arbitrary writer), a conv padding wider
@@ -42,6 +44,10 @@ from repro_torch.core.lif import LifParams
 from repro_torch.core.policies import ExecutionPolicy
 from repro_torch.core.sne_net import SNNSpec, tiny_net
 from repro_torch.kernels import window_common as wc
+from repro_torch.kernels.event_conv.ops import (WINDOW_SMEM_BUDGET,
+                                                WINDOW_TARGET_BLOCKS,
+                                                conv_window_plan,
+                                                conv_window_smem)
 from test_torch_kernels import (GATE_PATTERNS, WINDOW_FNS, pool_walk_case,
                                 window_case)
 
@@ -107,6 +113,46 @@ def test_pool_window_gate_patterns_match_jax(tiles, pairing, pattern):
                        use_pallas=False, **jkw)
     for a, b in zip(mine, ref):
         _eq(a, b)
+
+
+@pytest.mark.parametrize("pattern", ["prefix", "empty_slot", "ragged"])
+@pytest.mark.parametrize("pairing", ["f32", "native"])
+def test_conv_window_gate_patterns_match_jax(pairing, pattern):
+    # the gate patterns the CUDA conv walk is held to on the card that lie
+    # inside the reference oracle's contract (0/1 gates; channels below
+    # Ci, since its jnp.take fills past them): a walk that ends anywhere,
+    # holes before the end, an empty slot.  Non-unit gates and clamped
+    # coordinates are held kernel against plain version on the card.
+    v, w, xyc, gate, alive, kw = window_case("conv", pairing, "ones", 4,
+                                             E=40, pattern=pattern)
+    mine = WINDOW_FNS["conv"][0](*map(_t, (v, w, xyc, gate, alive)),
+                                 **dict(kw, tiles=_t(kw["tiles"])))
+    jkw = dict(kw, lif=_jlif(kw["lif"]), tiles=jnp.asarray(kw["tiles"]))
+    ref = jconv_window(*map(jnp.asarray, (v, w, xyc, gate, alive)),
+                       use_pallas=False, **jkw)
+    for a, b in zip(mine, ref):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("N,geometry,want", [
+    (8, (40, 40, 16, 5, 2), (3, 16)),      # Fig. 6 conv1: 14 bands a slot
+    (8, (20, 20, 32, 3, 16), (2, 32)),     # Fig. 6 conv2: 10 bands a slot
+    (1, (40, 40, 16, 5, 2), (1, 16)),      # one slot: a row a band
+    (200, (40, 40, 16, 5, 2), (40, 16)),   # more slots than SMs: one band
+    (8, (20, 20, 64, 7, 256), (20, 4)),    # the weights force channel blocks
+])
+def test_conv_window_plan(N, geometry, want):
+    Hp, Wp, Co, K, Ci = geometry
+    rows, co_blk = conv_window_plan(N, Hp, Wp, Co, K, Ci)
+    assert (rows, co_blk) == want
+    assert Co % co_blk == 0
+    assert conv_window_smem(rows, Wp, co_blk, K, Ci) <= WINDOW_SMEM_BUDGET
+    # as many blocks as the card has SMs, or the thickest band that fits
+    blocks = N * -(-Hp // rows) * (Co // co_blk)
+    assert blocks <= max(WINDOW_TARGET_BLOCKS, N * Co // co_blk) or \
+        conv_window_smem(rows + 1, Wp, co_blk, K, Ci) > WINDOW_SMEM_BUDGET
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_window_plan(N, Hp, Wp, Co, 9, 2000)
 
 
 # ---------------------------------------------------------------------------
