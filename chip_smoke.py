@@ -14,12 +14,14 @@ non-zero):
 2. each CUDA kernel against its plain PyTorch version on the card, bitwise
    (``torch.equal``), with kernel and plain times, the kernel's device-only
    time (``device_ms``, from the profiler) and the least time the card
-   could take (``bound_ms``); the pool kernels, the conv window kernel
-   and the megakernel also on a holed and an empty-slot gate pattern of
-   the same events:
+   could take (``bound_ms``); every kernel but the per-step fc and the
+   LIF kernel also on a holed and an empty-slot gate pattern of the same
+   events:
    a. the three per-step scatters at the Fig. 6 layer shapes (8 slots),
       under every dtype pairing, beside PyTorch's library route to the
-      same slab (checked against the kernel to float32 rounding);
+      same slab (checked against the kernel to float32 rounding); and the
+      per-step conv on a DAVIS346-sized slab (264x350x8, K = 5) that its
+      first design refused;
    b. the three fused window kernels on the inputs the main path gives
       them in a real window (8 slots, T = 4, after three served windows of
       the 1.2% cohort), under both window pairings, with an all-ones
@@ -452,18 +454,65 @@ def phase_kernels(program, dev) -> list:
                 f"{_ms_text(row['device_ms'])}  plain {row['plain_ms']:.2f} ms"
                 f"  library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
                 f" ms  bound {bound_ms:.5f} ms ({bound_by})  equal")
-            if spec.kind == "pool":
-                def call(which, g, v=v, w=w, xyc=xyc, s=spec.stride,
-                         out=out_dtype):
-                    fn = (event_pool_batched if which == "kern"
-                          else event_pool_batched_ref)
-                    return fn(v, w, xyc, g, s, out)
+            if spec.kind != "fc":
+                # the conv and pool walks on holed and empty-slot gates
+                def call(which, g, kern=kern, plain=plain, args=args):
+                    fn = kern if which == "kern" else plain
+                    return fn.func(*args[:3], g, *args[4:])
+
                 def bound(g, op=op, v=v, w=w, xyc=xyc, out=out_dtype):
                     return _bound(op, v, w, xyc, g, out)
                 rows += _pattern_rows(name, op.index, pairing, gate, call,
                                       op.index, bound)
+    rows.append(_large_conv_row(dev))
     torch.cuda.synchronize()
     return rows
+
+
+def _large_conv_row(dev) -> dict:
+    """The per-step conv on a slab its first design refused (one block held
+    a slot's whole slab): 2 slots of a DAVIS346 sensor (260x346) at K = 5,
+    a 264x350x8 slab, 2048 events of which the first 80% are gated,
+    bitwise against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.event_conv.ops import event_conv_batched
+    from repro_torch.kernels.event_conv.ref import event_conv_batched_ref
+    N, E, Hp, Wp, Co, K, Ci = 2, 2048, 264, 350, 8, 5, 2
+    rng = np.random.default_rng(77)
+    xyc = np.stack([rng.integers(0, Hp - K + 1, (N, E)),
+                    rng.integers(0, Wp - K + 1, (N, E)),
+                    rng.integers(0, Ci, (N, E))], -1).astype(np.int32)
+    gate = np.zeros((N, E), np.float32)
+    gate[:, : (4 * E) // 5] = 1.0
+    v = rng.standard_normal((N, Hp, Wp, Co)).astype(np.float32)
+    w = rng.standard_normal((K, K, Ci, Co)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (v, w, xyc, gate)]
+    kern = partial(event_conv_batched, *args)
+    plain = partial(event_conv_batched_ref, *args)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        diff = (got - want).abs().max().item()
+        raise AssertionError(f"event_conv_batched on a {Hp}x{Wp}x{Co} slab: "
+                             f"kernel != plain (max |diff| {diff})")
+    n_active = int((args[3] != 0).sum())
+    bound_ms, bound_by = _bound_of(
+        2 * v.nbytes + w.nbytes + n_active * 3 * 4 + gate.nbytes,
+        2 * n_active * K * K * Co)
+    row = {"kernel": "event_conv_batched", "layer": "davis346",
+           "pairing": "f32", "main": False, "N": N,
+           "slab": [Hp, Wp, Co], "E": E, "gated_events": n_active,
+           "ms": cuda_ms(kern, 20),
+           "device_ms": device_ms(kern, "event_conv_batched"),
+           "plain_ms": cuda_ms(plain, 1, 1), "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": 0.0}
+    log(f"  event_conv_batched   large slab {(N, Hp, Wp, Co)} K={K} "
+        f"E={E} gated={n_active}  kernel {row['ms']:.4f} ms  device "
+        f"{_ms_text(row['device_ms'])}  plain {row['plain_ms']:.2f} ms  "
+        f"bound {bound_ms:.5f} ms ({bound_by})  equal (a slab its first "
+        f"design refused)")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -679,21 +728,20 @@ def phase_window_kernels(spec, qn, dev):
                     f"{_ms_text(row['device_ms'])}  plain {row['plain_ms']:.2f} ms"
                     f"{lib_txt}  bound {bound_ms:.5f} ms ({bound_by})  "
                     f"equal")
-            if kind != "fc":
-                # the conv and pool walks on holed and empty-slot gates;
-                # the variants may gate padding on: an all-ones bitmap
-                ones = torch.ones_like(tiles)
+            # every walk on holed and empty-slot gates; the variants may
+            # gate padding on: an all-ones bitmap (fc takes none)
+            ones = None if kind == "fc" else torch.ones_like(tiles)
 
-                def call(which, g, args=(vp, p.w, x_k), alive=alive,
-                         kw=dict(kw, tiles=ones), fn=fns[kind]):
-                    return fn[0 if which == "kern" else 1](*args, g, alive,
-                                                           **kw)
+            def call(which, g, args=(vp, p.w, x_k), alive=alive,
+                     kw=kw if kind == "fc" else dict(kw, tiles=ones),
+                     fn=fns[kind]):
+                return fn[0 if which == "kern" else 1](*args, g, alive, **kw)
 
-                def bound(g, op=op, vp=vp, w=p.w, xyc=xyc, alive=alive,
-                          ones=ones, acc=acc):
-                    return _window_bound(op, vp, w, xyc, g, alive, ones, acc)
-                rows += _pattern_rows(name, op.index, pairing, gate_k, call,
-                                      10 + op.index, bound)
+            def bound(g, op=op, vp=vp, w=p.w, xyc=xyc, alive=alive,
+                      ones=ones, acc=acc):
+                return _window_bound(op, vp, w, xyc, g, alive, ones, acc)
+            rows += _pattern_rows(name, op.index, pairing, gate_k, call,
+                                  10 + op.index, bound)
     torch.cuda.synchronize()
     return rows, captured
 

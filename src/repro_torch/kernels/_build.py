@@ -32,7 +32,7 @@ _LIF = [_F] * 3 + [_I] * 3
 # C signature of each library's launcher: pointers, then ints (and the
 # window kernels' LIF plan), then stream
 _SIGNATURES = {
-    "event_conv": ("sne_event_conv_batched", [_P] * 5 + [_I] * 9 + [_P]),
+    "event_conv": ("sne_event_conv_batched", [_P] * 5 + [_I] * 10 + [_P]),
     "event_pool": ("sne_event_pool_batched", [_P] * 5 + [_I] * 8 + [_P]),
     "event_fc": ("sne_event_fc_batched", [_P] * 5 + [_I] * 7 + [_P]),
     "event_conv_window": ("sne_event_conv_window",
@@ -40,7 +40,7 @@ _SIGNATURES = {
     "event_pool_window": ("sne_event_pool_window",
                           [_P] * 8 + [_I] * 13 + _LIF + [_P]),
     "event_fc_window": ("sne_event_fc_window",
-                        [_P] * 7 + [_I] * 8 + _LIF + [_P]),
+                        [_P] * 7 + [_I] * 9 + _LIF + [_P]),
     # host arrays (layer descriptors, LIF floats, pointers), then as named
     "network_window": ("sne_network_window",
                        [_P] * 3 + [_I] + [_P] * 6 + [_I] * 15 + [_P]),
@@ -63,8 +63,8 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-    # every header (lif_common, scatter_common, pool_walk, conv_walk) is a
-    # dependency of every source
+    # every header (walk_common, lif_common, scatter_common, pool_walk,
+    # conv_walk, fc_walk) is a dependency of every source
     h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())

@@ -1,5 +1,5 @@
-// The ordered conv walk both conv window kernels share
-// (event_conv_window.cu, network_window.cu).
+// The ordered conv walk the three conv kernels share (event_conv.cu,
+// event_conv_window.cu, network_window.cu).
 //
 // A conv event (x0, y0, c, g) adds W_flipped[ki, kj, c, :] * g to the K x K
 // patch of slab sites (x0 + ki, y0 + kj, :).  Two events' patches overlap
@@ -9,7 +9,7 @@
 // thread, which applies, in list order, every event whose patch covers it.
 // Whether its neighbours have got that far does not matter.
 //
-// A block owns a band of slab rows r0, r0 + step, r0 + 2 step, ... (both
+// A block owns a band of slab rows r0, r0 + step, r0 + 2 step, ... (the
 // kernels deal a slab's rows to their blocks in turn, so that the rows
 // where events gather spread over the blocks) and C channels.  A lane is
 // one (row, channel) of the band, lane l = k * C + co for its k-th row;
@@ -20,9 +20,10 @@
 // conflicts.  Thread t owns the runs t, t + blockDim.x, ... and is the
 // only thread that reads or writes their sites.  Whether a site is hot
 // (interior and in a hot tile) is computed once per band row and column,
-// as one bit (band_hot_bits), never per sweep.
+// as one bit (band_hot_bits), never per sweep (the window kernels only).
 //
-// One walk over a timestep's event list:
+// One walk over a timestep's event list (walk_end and compact are
+// walk_common.cuh's):
 //  1. walk_end: the block reads the gate row once (16-byte loads) and
 //     max-reduces the last index with a gate set; nothing past it is read,
 //     so any gate pattern is walked right.
@@ -48,11 +49,25 @@
 
 #include "lif_common.cuh"
 #include "scatter_common.cuh"
+#include "walk_common.cuh"
 
 namespace sne {
 namespace conv {
 
 constexpr int kSeg = 8;          // sites of one lane in a run
+
+// The block shape of the two standalone conv kernels (event_conv.cu,
+// event_conv_window.cu; event_conv/ops.py mirrors it).
+constexpr int kPerLane = 4;      // events a thread filters per stage
+constexpr int kMinThreads = 256; // threads that filter, even for few lanes
+constexpr int kMaxThreads = 512;
+
+// threads of a block whose band has `runs` runs (a multiple of 32; a
+// thread owns several runs past kMaxThreads)
+inline int block_threads(int runs) {
+  const int t = (runs + 31) / 32 * 32;
+  return t < kMinThreads ? kMinThreads : (t > kMaxThreads ? kMaxThreads : t);
+}
 
 // A block's band of a conv slab.
 struct Band {
@@ -129,108 +144,6 @@ __device__ __forceinline__ void band_hot_bits(const Band& b, const int* hot,
 __device__ __forceinline__ bool hot_bit(const Band& b, const uint32_t* bits,
                                         int l, int y) {
   return bits[(l / b.C) * b.words + (y >> 5)] >> (y & 31) & 1u;
-}
-
-template <typename Acc>
-__device__ __forceinline__ Acc from_bits(int bits);
-template <>
-__device__ __forceinline__ float from_bits<float>(int bits) {
-  return __int_as_float(bits);
-}
-template <>
-__device__ __forceinline__ int32_t from_bits<int32_t>(int bits) {
-  return bits;
-}
-__device__ __forceinline__ int to_bits(float v) { return __float_as_int(v); }
-__device__ __forceinline__ int to_bits(int32_t v) { return v; }
-
-// Block-wide sum of one int per thread, returned to every thread, and the
-// exclusive prefix of the thread's warp (sum over warps below it) in
-// `below`.  `red` holds 32 ints.  All threads must call it; on return
-// `red` may be reused.
-__device__ __forceinline__ int warp_offsets(int per_warp, int* red,
-                                            int& below) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = (blockDim.x + 31) >> 5;
-  if (lane == 0) red[warp] = per_warp;
-  __syncthreads();
-  int off = 0, total = 0;
-  for (int k = 0; k < n_warps; ++k) {
-    const int c = red[k];
-    off += k < warp ? c : 0;
-    total += c;
-  }
-  __syncthreads();
-  below = off;
-  return total;
-}
-
-// One past the last index of g[0, E) whose gate is set (0 if none), for
-// every thread of the block.  All threads must call it.
-template <typename G>
-__device__ int walk_end(const G* __restrict__ g, int E, int* red) {
-  constexpr int V = 16 / sizeof(G);
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  // elements before the first 16-byte boundary (g is G-aligned)
-  const int head =
-      min(E, (int)(((16 - (reinterpret_cast<uintptr_t>(g) & 15)) & 15) /
-                   sizeof(G)));
-  const int n_vec = (E - head) / V;
-  int last = -1;            // each thread visits its indices in order
-  for (int i = tid; i < head; i += nthr)
-    if (g[i] != G(0)) last = i;
-  const int4* gv = reinterpret_cast<const int4*>(g + head);
-  for (int j = tid; j < n_vec; j += nthr) {
-    union {
-      int4 q;
-      G e[V];
-    } u;
-    u.q = __ldg(gv + j);
-#pragma unroll
-    for (int k = 0; k < V; ++k)
-      if (u.e[k] != G(0)) last = head + j * V + k;
-  }
-  for (int i = head + n_vec * V + tid; i < E; i += nthr)
-    if (g[i] != G(0)) last = i;
-  last = __reduce_max_sync(0xffffffffu, last);
-  const int lane = tid & 31, warp = tid >> 5;
-  if (lane == 0) red[warp] = last;
-  __syncthreads();
-  int m = -1;
-  for (int k = 0; k < ((nthr + 31) >> 5); ++k) m = max(m, red[k]);
-  __syncthreads();                      // red is reused
-  return m + 1;
-}
-
-// Keep, in list order, the events i of [0, cnt) for which get(i, e) is
-// true (it fills e); returns the kept count to every thread.  Warp w looks
-// at events [w * 32 * kPerLane, (w + 1) * 32 * kPerLane), 32 at a time, so
-// cnt must not pass kPerLane * blockDim.x.  All threads must call it; the
-// kept list is complete on return.
-template <int kPerLane, typename Get>
-__device__ int compact(int cnt, Get get, int4* __restrict__ kept,
-                       int* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int4 e[kPerLane];
-  unsigned bal[kPerLane];
-  int n_warp = 0;
-#pragma unroll
-  for (int r = 0; r < kPerLane; ++r) {
-    const int i = (warp * kPerLane + r) * 32 + lane;
-    const bool keep = i < cnt && get(i, e[r]);
-    bal[r] = __ballot_sync(0xffffffffu, keep);
-    n_warp += __popc(bal[r]);
-  }
-  int off;
-  const int total = warp_offsets(n_warp, red, off);
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int r = 0; r < kPerLane; ++r) {
-    if (bal[r] >> lane & 1u) kept[off + __popc(bal[r] & below)] = e[r];
-    off += __popc(bal[r]);
-  }
-  __syncthreads();                      // the kept list is complete
-  return total;
 }
 
 // A conv event of a list in halo coordinates, clamped like the

@@ -26,7 +26,7 @@
 // the gated events) are far below what those cost.
 //
 // Design: the ordered walk of conv_walk.cuh.  One block per (slot, band,
-// channel block): `event_conv/ops.py::conv_window_plan` gives each slot
+// channel block): `event_conv/ops.py::conv_plan` gives each slot
 // enough bands of at most band_rows slab rows that the slots fill the
 // card, and keeps all Co channels in a block unless shared memory forces
 // a channel block.  A slot's rows are dealt to its bands in turn (band y
@@ -42,25 +42,16 @@
 // each run's sites by the run's owner, so they need no barrier either.
 // `alive` is one value per block and timestep, so a frozen timestep is
 // skipped by the whole block.
-#include <algorithm>
-
 #include "conv_walk.cuh"
 #include "lif_common.cuh"
 
 namespace {
 
 using sne::conv::Band;
+using sne::conv::block_threads;
+using sne::conv::kMaxThreads;
+using sne::conv::kPerLane;
 using sne::conv::kSeg;
-
-constexpr int kPerLane = 4;      // events a thread filters per stage
-constexpr int kMinThreads = 256; // threads that filter, even for few lanes
-constexpr int kMaxThreads = 512;
-
-// threads of a block whose band has `runs` runs (a multiple of 32; a
-// thread owns several runs past kMaxThreads)
-int block_threads(int runs) {
-  return std::min(kMaxThreads, std::max(kMinThreads, (runs + 31) / 32 * 32));
-}
 
 // The block's dynamic shared memory: the kept list (kPerLane events a
 // thread, 16 bytes each), the band's sites, the weights, the hot bits, the
@@ -159,11 +150,11 @@ __global__ void __launch_bounds__(kMaxThreads) event_conv_window_kernel(
     }
     const int32_t* evt = ev + nt * E * 3;
     const Acc* gt = gate + nt * E;
-    const int n_walk = sne::conv::walk_end(gt, E, red);   // also: leak done
+    const int n_walk = sne::walk_end(gt, E, red);   // also: leak done
     for (int base = 0; base < n_walk; base += kPerLane * nthr) {
       if (base > 0) __syncthreads();         // the last stage is walked
       const int cnt = min(kPerLane * nthr, n_walk - base);
-      const int n_kept = sne::conv::compact<kPerLane>(
+      const int n_kept = sne::compact<kPerLane>(
           cnt,
           [&](int i, int4& e) {
             const int32_t* x = evt + (size_t)(base + i) * 3;

@@ -80,9 +80,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 using sne::conv::Band;
-using sne::conv::from_bits;
+using sne::from_bits;
 using sne::conv::kSeg;
-using sne::conv::to_bits;
+using sne::to_bits;
 
 constexpr int kCluster = 8;          // network_window/ops.py CLUSTER
 constexpr int kThreads = 512;        // network_window/ops.py THREADS
@@ -496,10 +496,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
       if (l == 0) {
         const int32_t* evt = net.ev + nt * E0 * 3;
         const Acc* gt = static_cast<const Acc*>(net.gate) + nt * E0;
-        const int n_walk = sne::conv::walk_end(gt, E0, red);
+        const int n_walk = sne::walk_end(gt, E0, red);
         for (int base = 0; base < n_walk; base += kStage) {
           if (base > 0) __syncthreads();   // the last stage is walked
-          const int n_kept = sne::conv::compact<kPerLane>(
+          const int n_kept = sne::compact<kPerLane>(
               min(kStage, n_walk - base),
               [&](int i, int4& e) {
                 const int32_t* x = evt + (size_t)(base + i) * 3;
@@ -569,7 +569,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
         const int Cin = ly.Cin, Win = ly.Win, pad = ly.pad;
         for (int base = 0; base < nv; base += kStage) {
           if (base > 0) __syncthreads();   // the last stage is walked
-          const int n_kept = sne::conv::compact<kPerLane>(
+          const int n_kept = sne::compact<kPerLane>(
               min(kStage, nv - base),
               [&](int i, int4& e) {
                 const int v = base + i;

@@ -8,7 +8,8 @@
 // s = r + j * n_thr lives in shared memory at mem[j * kThreads + tid]
 // (every thread's column is its own bank).
 //
-// One walk over a slot's event list (or one timestep's):
+// One walk over a slot's event list (or one timestep's; walk_end and the
+// cp.async helpers are walk_common.cuh's):
 //  1. walk_end: the block reads the gate row once (16-byte loads and a
 //     scalar head and tail) and max-reduces the last index with a gate set;
 //     nothing past it is read.  Any gate pattern is walked right: this is
@@ -28,6 +29,7 @@
 #include <stdint.h>
 
 #include "scatter_common.cuh"
+#include "walk_common.cuh"
 
 namespace sne {
 namespace pool {
@@ -71,56 +73,6 @@ struct Scratch {
   __device__ int* xyc(int b) const { return raw + b * 4 * kStage; }
   __device__ int* gates(int b) const { return xyc(b) + 3 * kStage; }
 };
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// One past the last index of g[0, E) whose gate is set (0 if none), for
-// every thread of the block.  All threads must call it.
-template <typename G>
-__device__ int walk_end(const G* __restrict__ g, int E, int* red) {
-  constexpr int V = 16 / sizeof(G);
-  const int tid = threadIdx.x;
-  // elements before the first 16-byte boundary (g is G-aligned)
-  const int head =
-      min(E, (int)(((16 - (reinterpret_cast<uintptr_t>(g) & 15)) & 15) /
-                   sizeof(G)));
-  const int n_vec = (E - head) / V;
-  int last = -1;            // each thread visits its indices in order
-  for (int i = tid; i < head; i += kThreads)
-    if (g[i] != G(0)) last = i;
-  const int4* gv = reinterpret_cast<const int4*>(g + head);
-  for (int j = tid; j < n_vec; j += kThreads) {
-    union {
-      int4 q;
-      G e[V];
-    } u;
-    u.q = __ldg(gv + j);
-#pragma unroll
-    for (int k = 0; k < V; ++k)
-      if (u.e[k] != G(0)) last = head + j * V + k;
-  }
-  for (int i = head + n_vec * V + tid; i < E; i += kThreads)
-    if (g[i] != G(0)) last = i;
-  last = __reduce_max_sync(0xffffffffu, last);
-  if ((tid & 31) == 0) red[tid >> 5] = last;
-  __syncthreads();
-  int m = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) m = max(m, red[w]);
-  __syncthreads();                      // red is reused
-  return m + 1;
-}
 
 // Start copying events [base, base + cnt) of a list into raw buffer b.
 // Gates of 1 byte are not copied (cp.async moves 4 bytes at least): the
@@ -215,7 +167,7 @@ __device__ void walk(Scratch& sc, const int32_t* __restrict__ ev,
                      const G* __restrict__ gate, int E,
                      const Wt* __restrict__ w, const Geom& geo, Acc* mem) {
   const int tid = threadIdx.x;
-  const int n_walk = walk_end(gate, E, sc.red);
+  const int n_walk = walk_end<kThreads>(gate, E, sc.red);
   if (n_walk == 0) return;
   stage_raw(sc, 0, ev, gate, 0, min(kStage, n_walk));
   const Acc* kept_val = static_cast<const Acc*>(sc.kept_val);

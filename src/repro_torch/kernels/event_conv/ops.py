@@ -23,75 +23,61 @@ from repro_torch.kernels.window_common import tile_grid
 
 NAME = "event_conv_batched"
 WINDOW_NAME = "event_conv_window"
-# a per-step block keeps its slab slice, weights and event stage in shared
-# memory
-SMEM_BUDGET = 200 * 1024
-MIN_THREADS = 64
-ACC_BYTES = 4            # every pairing accumulates in f32 or int32
-EVENT_STAGE_BYTES = 128 * 16   # kChunk events of (x, y, c, gate)
-# The window kernel (csrc/event_conv_window.cu on csrc/conv_walk.cuh)
-WINDOW_TARGET_BLOCKS = 132     # the H100's SMs: one block each
-WINDOW_SMEM_BUDGET = 232_448   # the H100's opt-in shared memory per block
-WINDOW_MIN_THREADS = 256       # event_conv_window.cu kMinThreads
-WINDOW_MAX_THREADS = 512       # event_conv_window.cu kMaxThreads
-WINDOW_PER_LANE = 4            # events a thread filters per stage (kPerLane)
+# The blocks of both conv kernels (csrc/event_conv.cu and
+# csrc/event_conv_window.cu on csrc/conv_walk.cuh)
+TARGET_BLOCKS = 132            # the H100's SMs: one block each
+BLOCK_SMEM = 232_448           # the H100's opt-in shared memory per block
+BLOCK_THREADS = (256, 512)     # conv_walk.cuh kMinThreads, kMaxThreads
+PER_LANE = 4                   # events a thread filters per stage (kPerLane)
 SEG = 8                        # sites of one lane a run holds (kSeg)
+ACC_BYTES = 4                  # every pairing accumulates in f32 or int32
 
 
-def conv_channel_block(Hp: int, Wp: int, Co: int, K: int, Ci: int) -> int:
-    """Output channels per block of the per-step kernel
-    (``csrc/event_conv.cu``, one thread per patch offset): the smallest
-    divisor of ``Co`` giving at least ``MIN_THREADS`` threads, shrunk until
-    the block's shared memory fits.  Raises if no block fits.  The window
-    kernel no longer uses it: :func:`conv_window_plan` sizes its blocks."""
-    divisors = [b for b in range(1, Co + 1) if Co % b == 0]
-    fits = [b for b in divisors if K * K * b <= 1024
-            and ACC_BYTES * (Hp * Wp * b + K * K * Ci * b)
-            + EVENT_STAGE_BYTES <= SMEM_BUDGET]
-    if not fits:
-        raise ValueError(f"{NAME}: a ({Hp}, {Wp}) slab with K={K} does not "
-                         f"fit one block's shared memory")
-    wide = [b for b in fits if K * K * b >= MIN_THREADS]
-    return wide[0] if wide else fits[-1]
-
-
-def conv_window_smem(band_rows: int, Wp: int, co_blk: int, K: int,
-                     Ci: int) -> int:
-    """Shared memory of one window block (``event_conv_window.cu``
-    ``smem_bytes``): the kept events of a stage, the band's sites, the
-    weights, one hot bit per site, the warp partials and the bitmap."""
+def conv_smem(band_rows: int, Wp: int, co_blk: int, K: int, Ci: int, *,
+              window: bool) -> int:
+    """Shared memory of one block (``smem_bytes`` of ``event_conv.cu`` and
+    ``event_conv_window.cu``): the kept events of a stage, the band's
+    sites, the weights and the warp partials; the window kernel adds one
+    hot bit per site and the tile bitmap."""
     lanes = band_rows * co_blk
     runs = lanes * -(-Wp // SEG)
-    threads = min(WINDOW_MAX_THREADS,
-                  max(WINDOW_MIN_THREADS, -(-runs // 32) * 32))
-    return (16 * WINDOW_PER_LANE * threads
-            + ACC_BYTES * (Wp * lanes + K * K * Ci * co_blk)
-            + 4 * band_rows * -(-Wp // 32) + 4 * (32 + 16))
+    lo, hi = BLOCK_THREADS
+    threads = min(hi, max(lo, -(-runs // 32) * 32))
+    smem = (16 * PER_LANE * threads
+            + ACC_BYTES * (Wp * lanes + K * K * Ci * co_blk) + 4 * 32)
+    if window:
+        smem += 4 * band_rows * -(-Wp // 32) + 4 * 16
+    return smem
 
 
-def conv_window_plan(N: int, Hp: int, Wp: int, Co: int, K: int,
-                     Ci: int) -> Tuple[int, int]:
-    """``(band_rows, co_blk)`` of the window kernel's blocks.
+def conv_plan(N: int, Hp: int, Wp: int, Co: int, K: int, Ci: int, *,
+              window: bool) -> Tuple[int, int]:
+    """``(band_rows, co_blk)`` of a conv kernel's blocks (``window``: the
+    window kernel's, else the per-step scatter's).
 
     A block owns a band of at most ``band_rows`` slab rows (a slot's rows
     dealt to its ``ceil(Hp / band_rows)`` bands in turn) at ``co_blk``
     output channels: all ``Co`` unless shared memory forces a channel
     block.  There are enough bands that the ``N`` slots fill the card's
-    :data:`WINDOW_TARGET_BLOCKS` SMs (at 8 slots: 16 bands a slot), made
-    thicker only while shared memory allows.  Raises if not even one row
-    at one channel fits."""
+    :data:`TARGET_BLOCKS` SMs (at 8 slots: 16 bands a slot), made thicker
+    only while shared memory allows.  One row at one channel holds a slab
+    row of any width the card serves; raises if not even that fits (the
+    weights of one channel past :data:`BLOCK_SMEM`)."""
+    name = WINDOW_NAME if window else NAME
     for co_blk in sorted((b for b in range(1, Co + 1) if Co % b == 0),
                          reverse=True):
         blocks = N * (Co // co_blk)
-        bands = max(1, min(Hp, WINDOW_TARGET_BLOCKS // blocks))
+        bands = max(1, min(Hp, TARGET_BLOCKS // blocks))
         rows = -(-Hp // bands)
-        while rows > 1 and conv_window_smem(rows, Wp, co_blk, K, Ci) \
-                > WINDOW_SMEM_BUDGET:
+
+        def smem(r):
+            return conv_smem(r, Wp, co_blk, K, Ci, window=window)
+        while rows > 1 and smem(rows) > BLOCK_SMEM:
             rows -= 1
-        if conv_window_smem(rows, Wp, co_blk, K, Ci) <= WINDOW_SMEM_BUDGET:
+        if smem(rows) <= BLOCK_SMEM:
             return rows, co_blk
-    raise ValueError(f"{WINDOW_NAME}: a ({Hp}, {Wp}) slab with K={K}, "
-                     f"Ci={Ci} does not fit one block's shared memory")
+    raise ValueError(f"{name}: a ({Hp}, {Wp}) slab with K={K}, Ci={Ci} "
+                     f"does not fit one block's shared memory")
 
 
 def event_conv_batched(v: torch.Tensor, weights: torch.Tensor,
@@ -124,14 +110,13 @@ def event_conv_batched(v: torch.Tensor, weights: torch.Tensor,
     dev = check_cuda(NAME, v, weights, ev_xyc, ev_gate)
     N, Hp, Wp, Co = v.shape
     K, _, Ci, _ = weights.shape
-    co_blk = conv_channel_block(Hp, Wp, Co, K, Ci)
-    w_f = torch.flip(weights, (0, 1)).contiguous()
+    band_rows, co_blk = conv_plan(N, Hp, Wp, Co, K, Ci, window=False)
     out = torch.empty(v.shape, dtype=out_dtype, device=dev)
     fn = _build.library("event_conv").sne_event_conv_batched
     with torch.cuda.device(dev):
-        err = fn(v.data_ptr(), w_f.data_ptr(), ev_xyc.data_ptr(),
+        err = fn(v.data_ptr(), weights.data_ptr(), ev_xyc.data_ptr(),
                  ev_gate.data_ptr(), out.data_ptr(), N, Hp, Wp, Co, K, Ci,
-                 ev_xyc.shape[1], co_blk, code,
+                 ev_xyc.shape[1], co_blk, band_rows, code,
                  torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(NAME, err)
     LAUNCHES[NAME] += 1
@@ -181,7 +166,7 @@ def event_conv_window(v: torch.Tensor, weights: torch.Tensor,
                      *(() if tiles is None else (tiles,)))
     K, _, Ci, _ = weights.shape
     T, E = ev_xyc.shape[1], ev_xyc.shape[2]
-    band_rows, co_blk = conv_window_plan(N, Hp, Wp, Co, K, Ci)
+    band_rows, co_blk = conv_plan(N, Hp, Wp, Co, K, Ci, window=True)
     v_out = torch.empty_like(v)
     s_out = torch.empty((N, T, Hp - 2 * halo, Wp - 2 * halo, Co),
                         dtype=acc, device=dev)

@@ -21,6 +21,25 @@ from repro_torch.kernels.event_fc.ref import (event_fc_batched_ref,
 
 NAME = "event_fc_batched"
 WINDOW_NAME = "event_fc_window"
+# The window kernel's column blocks (csrc/event_fc_window.cu on
+# csrc/fc_walk.cuh)
+TARGET_BLOCKS = 132      # the H100's SMs: one block each
+FC_THREADS = 256         # fc_walk.cuh kThreads: at most a column a thread
+SEGMENT = 32             # columns of one 128-byte f32 row segment
+
+
+def fc_column_block(N: int, Dout: int) -> int:
+    """Output columns per block of the fc window kernel.
+
+    Enough column blocks a slot that the ``N`` slots' blocks fill the
+    card's :data:`TARGET_BLOCKS` SMs, each a whole number of
+    :data:`SEGMENT`-column row segments (one coalesced read of a weight
+    row), at most :data:`FC_THREADS` (each column has its own thread) and
+    at most ``Dout``.  The last block of a slot takes what is left."""
+    per_slot = max(1, TARGET_BLOCKS // max(N, 1))
+    cols = -(-Dout // per_slot)
+    cols = -(-cols // SEGMENT) * SEGMENT      # whole row segments
+    return min(cols, FC_THREADS, Dout)
 
 
 def event_fc_batched(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
@@ -102,7 +121,8 @@ def event_fc_window(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
     with torch.cuda.device(dev):
         err = fn(v.data_ptr(), w.data_ptr(), ev_xyc.data_ptr(),
                  ev_gate.data_ptr(), alive.data_ptr(), v_out.data_ptr(),
-                 s_out.data_ptr(), N, T, E, Wi, Ci, w.shape[0], Dout, code,
+                 s_out.data_ptr(), N, T, E, Wi, Ci, w.shape[0], Dout,
+                 fc_column_block(N, Dout), code,
                  *lif_args(lif), torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(WINDOW_NAME, err)
     LAUNCHES[WINDOW_NAME] += 1

@@ -118,8 +118,8 @@ class EventServeEngine:
         ``policy`` (default ``ExecutionPolicy()``: float32 carrier,
         fused-window, idle skip and tile sparsity on) selects dtype policy,
         lowering, idle skip and tile sparsity; the port serves the
-        ``"per-step"`` and ``"fused-window"`` lowerings on the ``"local"``
-        backend (other values raise).  ``device`` defaults to CUDA and
+        ``"per-step"``, ``"fused-window"`` and ``"fused-network"``
+        lowerings on the ``"local"`` backend (other backends raise).  ``device`` defaults to CUDA and
         raises without a card unless ``"cpu"`` is asked for; ``params``
         must already live there.
         """

@@ -38,10 +38,12 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.event_conv import (event_conv_batched,
                                             event_conv_window,
                                             event_conv_window_ref)
-from repro_torch.kernels.event_conv.ops import conv_window_plan
+from repro_torch.kernels.event_conv.ops import (BLOCK_SMEM, TARGET_BLOCKS,
+                                                conv_plan, conv_smem)
 from repro_torch.kernels.event_conv.ref import event_conv_batched_ref
 from repro_torch.kernels.event_fc import (event_fc_batched, event_fc_window,
                                           event_fc_window_ref)
+from repro_torch.kernels.event_fc.ops import FC_THREADS, fc_column_block
 from repro_torch.kernels.event_fc.ref import event_fc_batched_ref
 from repro_torch.kernels.event_pool import (event_pool_batched,
                                             event_pool_window,
@@ -145,6 +147,33 @@ def test_conv_plain_matches_jax(pairing, N, H, W, Co, K, Ci, E):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("N,geometry,want", [
+    (8, (40, 40, 16, 5, 2), (3, 16)),      # Fig. 6 conv1: 14 bands a slot
+    (8, (20, 20, 32, 3, 16), (2, 32)),     # Fig. 6 conv2: 10 bands a slot
+    (2, (264, 350, 8, 5, 2), (4, 8)),      # a DAVIS346 sensor (260x346)
+    (1, (264, 350, 1, 5, 2), (2, 1)),      # the same at one channel
+    (8, (724, 1284, 16, 5, 2), (2, 16)),   # a 720x1280 sensor
+])
+def test_conv_step_plan(N, geometry, want):
+    # the per-step kernel bands its slab as the window kernel does: a
+    # block holds a few rows, never the whole slab, so a slab far past
+    # what one block's shared memory holds is served (the old rule, one
+    # block a slot, refused any slab over about 51k sites)
+    Hp, Wp, Co, K, Ci = geometry
+    rows, co_blk = conv_plan(N, Hp, Wp, Co, K, Ci, window=False)
+    assert (rows, co_blk) == want
+    assert Co % co_blk == 0
+    assert conv_smem(rows, Wp, co_blk, K, Ci, window=False) <= BLOCK_SMEM
+    # one row at one channel is far inside a block's shared memory
+    assert conv_smem(1, Wp, 1, K, Ci, window=False) <= BLOCK_SMEM // 4
+    blocks = N * -(-Hp // rows) * (Co // co_blk)
+    assert blocks <= max(TARGET_BLOCKS, N * Co // co_blk) or \
+        conv_smem(rows + 1, Wp, co_blk, K, Ci, window=False) > BLOCK_SMEM
+    # the per-step block keeps no hot bits or bitmap
+    assert conv_smem(rows, Wp, co_blk, K, Ci, window=False) < \
+        conv_smem(rows, Wp, co_blk, K, Ci, window=True)
+
+
 # ---------------------------------------------------------------------------
 # pool
 # ---------------------------------------------------------------------------
@@ -219,6 +248,25 @@ def test_fc_plain_matches_jax(pairing, N, H, W, C, D, E):
                            out_dtype=_torch_out(pairing)).numpy()
     want = _jax("fc", v, w, xyc, gate, (H, W, C), out=acc)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("N,Dout,cols,blocks", [
+    (8, 512, 32, 128),          # Fig. 6 fc1: 16 column blocks a slot
+    (8, 11, 11, 8),             # Fig. 6 fc2: one block a slot
+    (8, 100, 32, 32),           # 32 does not divide 100: a 4-column block
+    (1, 512, 32, 16),           # one slot: a row segment a block
+    (8, 2048, 128, 128),
+    (200, 512, 256, 400),       # more slots than SMs: a column a thread
+])
+def test_fc_column_block(N, Dout, cols, blocks):
+    got = fc_column_block(N, Dout)
+    assert got == cols and got <= FC_THREADS
+    per_slot = -(-Dout // got)
+    # every column in exactly one block, none empty
+    assert (per_slot - 1) * got < Dout <= per_slot * got
+    assert N * per_slot == blocks
+    # whole row segments, unless the layer is narrower than one
+    assert got % 32 == 0 or got == Dout
 
 
 # ---------------------------------------------------------------------------
@@ -341,7 +389,7 @@ WINDOW_GEOMETRY = {"conv": ((7, 9, 2), 4), "pool": ((10, 11, 3), 3),
 
 
 def window_case(kind, pairing, tiles, seed, N=3, T=4, E=12,
-                pattern="random"):
+                pattern="random", geometry=None):
     """Numpy inputs of one window launch of ``kind`` and its keywords.
 
     ``tiles`` is None (dense), ``"ones"`` (an all-hot bitmap) or
@@ -352,7 +400,8 @@ def window_case(kind, pairing, tiles, seed, N=3, T=4, E=12,
     "random" draws unsorted events with 0/1 gates; any of
     :data:`GATE_PATTERNS` takes events and gates from
     :func:`_gate_pattern` instead (conv: duplicates, non-unit gates, and
-    coordinates the kernel must clamp).
+    coordinates the kernel must clamp).  ``geometry`` ((H, W, C), Co)
+    replaces the kind's :data:`WINDOW_GEOMETRY`.
 
     Returns ``(v, w, xyc, gate, alive, kwargs)``; ``xyc`` is slot-major
     (N, T, E, 3), in halo coordinates for conv; ``kwargs`` holds
@@ -360,7 +409,7 @@ def window_case(kind, pairing, tiles, seed, N=3, T=4, E=12,
     or None; fc takes none).
     """
     rng = np.random.default_rng(seed)
-    (H, W, C), Co = WINDOW_GEOMETRY[kind]
+    (H, W, C), Co = geometry or WINDOW_GEOMETRY[kind]
     v_dt, w_dt, g_dt, _ = WINDOW_PAIRINGS[pairing]
     lif = WINDOW_LIF[pairing]
     hi = (H, W) if tiles != "sparse" else (max(1, H // 3), max(1, W // 3))
@@ -587,9 +636,9 @@ def test_cuda_window_kernel_matches_plain(cuda, kind, tiles, pattern, N, E,
     v, w, xyc, gate, alive, kw = window_case(kind, pairing, tiles, 10, N=N,
                                              T=4, E=E, pattern=pattern)
     if kind == "conv":
-        band_rows, co_blk = conv_window_plan(N, v.shape[1], v.shape[2],
-                                             v.shape[3], w.shape[0],
-                                             w.shape[2])
+        band_rows, co_blk = conv_plan(N, v.shape[1], v.shape[2],
+                                      v.shape[3], w.shape[0], w.shape[2],
+                                      window=True)
         assert (band_rows, co_blk) == ((1, 4) if N == 4 else (3, 4))
     if kw.get("tiles") is not None:
         kw["tiles"] = _t(kw["tiles"]).to(cuda)
@@ -667,6 +716,95 @@ def test_cuda_pool_large_slab_matches_plain(cuda, kind):
     torch.cuda.synchronize()
     for g, x in zip(_as_tuple(got), _as_tuple(want)):
         assert g.dtype == x.dtype and torch.equal(g.cpu(), x)
+
+
+def conv_walk_case(pairing, pattern, N, E, seed):
+    """Numpy inputs ``(v, w, xyc, gate)`` of one per-step conv launch for a
+    gate pattern: the conv window's geometry (an 11x13 halo-padded slab of
+    4 channels, K = 3, 2 input channels; ``pairing`` one of ``PAIRINGS``),
+    events from :func:`_gate_pattern` in halo coordinates, negative and
+    past-the-slab ones included (the kernel clamps them)."""
+    rng = np.random.default_rng(seed)
+    (H, W, C), Co = WINDOW_GEOMETRY["conv"]
+    K, P = 3, 1
+    h = K - 1
+    slab = (N, H + 2 * P - K + 1 + 2 * h, W + 2 * P - K + 1 + 2 * h, Co)
+    v, w = _arrays(rng, slab, (K, K, C, Co), pairing)
+    xyc, gate = _gate_pattern(rng, pattern, N, E, (H, W, C), np.arange(N),
+                              PAIRINGS[pairing][2], True)
+    return v, w, xyc + np.asarray([P, P, 0], np.int32), gate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", GATE_PATTERNS)
+@pytest.mark.parametrize("N,E", [(4, 201), (24, 201), (4, 2501)])
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+def test_cuda_conv_walk_matches_plain(cuda, pairing, N, E, pattern):
+    # the per-step conv on the window kernel's walk: at 4 slots each band
+    # is one slab row, at 24 the 11-row slab is dealt to 4 bands of at
+    # most 3 rows, so a patch spans several bands; E = 2501 is past one
+    # 1024-event stage; an odd E leaves most gate rows off a 16-byte
+    # boundary.  Unsorted events, duplicates, non-unit gates, holes, an
+    # empty slot and clamped coordinates hold each site's order.
+    v, w, xyc, gate = conv_walk_case(pairing, pattern, N, E, 41)
+    assert conv_plan(N, *v.shape[1:], w.shape[0], w.shape[2],
+                     window=False) == ((1, 4) if N == 4 else (3, 4))
+    out = _torch_out(pairing)
+    args = [_t(a).to(cuda) for a in (v, w, xyc, gate)]
+    before = LAUNCHES["event_conv_batched"]
+    got = event_conv_batched(*args, out_dtype=out)
+    want = event_conv_batched_ref(*args, out_dtype=out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["event_conv_batched"] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_conv_large_slab_matches_plain(cuda):
+    # a DAVIS346 sensor (260x346) at K = 5: a 264x350 slab, 92400 sites a
+    # channel, which the per-step kernel refused while one block held a
+    # slot's whole slab
+    rng = np.random.default_rng(34)
+    N, E, Hp, Wp, Co, K, Ci = 2, 3000, 264, 350, 8, 5, 2
+    xyc = np.stack([rng.integers(0, Hp - K + 1, (N, E)),
+                    rng.integers(0, Wp - K + 1, (N, E)),
+                    rng.integers(0, Ci, (N, E))], -1).astype(np.int32)
+    gate = rng.standard_normal((N, E)).astype(np.float32)
+    gate[rng.random((N, E)) < 0.3] = 0
+    v = rng.standard_normal((N, Hp, Wp, Co)).astype(np.float32)
+    w = rng.standard_normal((K, K, Ci, Co)).astype(np.float32)
+    assert conv_plan(N, Hp, Wp, Co, K, Ci, window=False) == (4, 8)
+    args = [_t(a).to(cuda) for a in (v, w, xyc, gate)]
+    got = event_conv_batched(*args)
+    want = event_conv_batched_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", GATE_PATTERNS)
+@pytest.mark.parametrize("Dout,E", [(11, 201), (512, 201), (100, 201),
+                                    (512, 2501)])
+@pytest.mark.parametrize("pairing", list(WINDOW_PAIRINGS))
+def test_cuda_fc_walk_matches_plain(cuda, pairing, Dout, E, pattern):
+    # the fc window's staged column walk at 8 slots: Fig. 6 fc2's 11
+    # columns (one block a slot; int8 rows off 4-byte boundaries), fc1's
+    # 512 (16 blocks of 32) and 100 (the last block 4 columns wide);
+    # E = 2501 is past one 1024-event stage and a chunk of staged rows,
+    # an odd E leaves gate rows off a 16-byte boundary.  Duplicate rows,
+    # non-unit gates, holes, an empty slot, rows out of range and frozen
+    # timesteps hold each column's order.
+    v, w, xyc, gate, alive, kw = window_case(
+        "fc", pairing, None, 11, N=8, T=4, E=E, pattern=pattern,
+        geometry=((8, 8, 4), Dout))
+    args = [_t(a).to(cuda) for a in (v, w, xyc, gate, alive)]
+    before = LAUNCHES["event_fc_window"]
+    got = event_fc_window(*args, **kw)
+    want = event_fc_window_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["event_fc_window"] == before + 1
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.equal(g, x)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@
   both dtype pairings, with no bitmap, an all-ones bitmap and a sparse one
   propagated from events confined to a corner; the pool and conv windows
   also on the gate patterns their CUDA walks are held to on the card;
-* the conv window kernel's band rule (``conv_window_plan``);
+* the conv window kernel's band rule (``conv_plan``);
 * every `kernels.window_common` helper against the reference's, on the
   edges that differ between the two libraries: repeated coordinates in
   ``seed_site_map`` (a max, not an arbitrary writer), a conv padding wider
@@ -44,10 +44,8 @@ from repro_torch.core.lif import LifParams
 from repro_torch.core.policies import ExecutionPolicy
 from repro_torch.core.sne_net import SNNSpec, tiny_net
 from repro_torch.kernels import window_common as wc
-from repro_torch.kernels.event_conv.ops import (WINDOW_SMEM_BUDGET,
-                                                WINDOW_TARGET_BLOCKS,
-                                                conv_window_plan,
-                                                conv_window_smem)
+from repro_torch.kernels.event_conv.ops import (BLOCK_SMEM, TARGET_BLOCKS,
+                                                conv_plan, conv_smem)
 from test_torch_kernels import (GATE_PATTERNS, WINDOW_FNS, pool_walk_case,
                                 window_case)
 
@@ -143,16 +141,16 @@ def test_conv_window_gate_patterns_match_jax(pairing, pattern):
 ])
 def test_conv_window_plan(N, geometry, want):
     Hp, Wp, Co, K, Ci = geometry
-    rows, co_blk = conv_window_plan(N, Hp, Wp, Co, K, Ci)
+    rows, co_blk = conv_plan(N, Hp, Wp, Co, K, Ci, window=True)
     assert (rows, co_blk) == want
     assert Co % co_blk == 0
-    assert conv_window_smem(rows, Wp, co_blk, K, Ci) <= WINDOW_SMEM_BUDGET
+    assert conv_smem(rows, Wp, co_blk, K, Ci, window=True) <= BLOCK_SMEM
     # as many blocks as the card has SMs, or the thickest band that fits
     blocks = N * -(-Hp // rows) * (Co // co_blk)
-    assert blocks <= max(WINDOW_TARGET_BLOCKS, N * Co // co_blk) or \
-        conv_window_smem(rows + 1, Wp, co_blk, K, Ci) > WINDOW_SMEM_BUDGET
+    assert blocks <= max(TARGET_BLOCKS, N * Co // co_blk) or \
+        conv_smem(rows + 1, Wp, co_blk, K, Ci, window=True) > BLOCK_SMEM
     with pytest.raises(ValueError, match="does not fit"):
-        conv_window_plan(N, Hp, Wp, Co, 9, 2000)
+        conv_plan(N, Hp, Wp, Co, 9, 2000, window=True)
 
 
 # ---------------------------------------------------------------------------
