@@ -14,9 +14,8 @@ non-zero):
 2. each CUDA kernel against its plain PyTorch version on the card, bitwise
    (``torch.equal``), with kernel and plain times, the kernel's device-only
    time (``device_ms``, from the profiler) and the least time the card
-   could take (``bound_ms``); every kernel but the per-step fc and the
-   LIF kernel also on a holed and an empty-slot gate pattern of the same
-   events:
+   could take (``bound_ms``); every kernel but the LIF kernel also on a
+   holed and an empty-slot gate pattern of the same events:
    a. the three per-step scatters at the Fig. 6 layer shapes (8 slots),
       under every dtype pairing, beside PyTorch's library route to the
       same slab (checked against the kernel to float32 rounding); and the
@@ -454,16 +453,15 @@ def phase_kernels(program, dev) -> list:
                 f"{_ms_text(row['device_ms'])}  plain {row['plain_ms']:.2f} ms"
                 f"  library {lib_ms if lib_ms is None else round(lib_ms, 4)}"
                 f" ms  bound {bound_ms:.5f} ms ({bound_by})  equal")
-            if spec.kind != "fc":
-                # the conv and pool walks on holed and empty-slot gates
-                def call(which, g, kern=kern, plain=plain, args=args):
-                    fn = kern if which == "kern" else plain
-                    return fn.func(*args[:3], g, *args[4:])
+            # the conv, pool and fc walks on holed and empty-slot gates
+            def call(which, g, kern=kern, plain=plain, args=args):
+                fn = kern if which == "kern" else plain
+                return fn.func(*args[:3], g, *args[4:])
 
-                def bound(g, op=op, v=v, w=w, xyc=xyc, out=out_dtype):
-                    return _bound(op, v, w, xyc, g, out)
-                rows += _pattern_rows(name, op.index, pairing, gate, call,
-                                      op.index, bound)
+            def bound(g, op=op, v=v, w=w, xyc=xyc, out=out_dtype):
+                return _bound(op, v, w, xyc, g, out)
+            rows += _pattern_rows(name, op.index, pairing, gate, call,
+                                  op.index, bound)
     rows.append(_large_conv_row(dev))
     torch.cuda.synchronize()
     return rows
@@ -1198,9 +1196,10 @@ def phase_full_width(spec, qn, dev, smi: str) -> dict:
 
 def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
     """Serve the 4.9% cohort once more (f32 carrier, ``fusion``) under
-    ``torch.profiler``: the device-busy share of the traced wall time and
-    the device time by kernel name (the trace itself is too large to keep).
-    """
+    ``torch.profiler``: the device-busy share of the traced wall time, the
+    device time by kernel name of the ten largest, and of each of the
+    port's kernels that ran, however small (the trace itself is too large
+    to keep)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.policies import ExecutionPolicy
     reqs = _cohort(spec, COHORTS[1][1], 100, N_SLOTS, spec.n_timesteps)
@@ -1217,7 +1216,15 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
            else None,
            "top_kernels": [{"name": e.key[:80], "calls": e.count,
                             "device_ms": e.self_device_time_total / 1e3}
-                           for e in top]}
+                           for e in top],
+           "port_kernels": {}}
+    for e in kernels:
+        for name in SOURCES:
+            if f"{name}_kernel" in e.key:
+                k = out["port_kernels"].setdefault(name, {"calls": 0,
+                                                          "device_ms": 0.0})
+                k["calls"] += e.count
+                k["device_ms"] += e.self_device_time_total / 1e3
     share = ("not measured (no device time in the trace)"
              if out["device_busy_share"] is None
              else f"{out['device_busy_share']:.2%}")
@@ -1226,6 +1233,9 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
     for k in out["top_kernels"]:
         log(f"    {k['device_ms']:9.2f} ms  {k['calls']:6d} calls  "
             f"{k['name']}")
+    for name, k in out["port_kernels"].items():
+        log(f"    port kernel {name}: {k['device_ms']:.2f} ms, "
+            f"{k['calls']} calls")
     return out
 
 

@@ -34,7 +34,7 @@ _LIF = [_F] * 3 + [_I] * 3
 _SIGNATURES = {
     "event_conv": ("sne_event_conv_batched", [_P] * 5 + [_I] * 10 + [_P]),
     "event_pool": ("sne_event_pool_batched", [_P] * 5 + [_I] * 8 + [_P]),
-    "event_fc": ("sne_event_fc_batched", [_P] * 5 + [_I] * 7 + [_P]),
+    "event_fc": ("sne_event_fc_batched", [_P] * 5 + [_I] * 8 + [_P]),
     "event_conv_window": ("sne_event_conv_window",
                           [_P] * 8 + [_I] * 16 + _LIF + [_P]),
     "event_pool_window": ("sne_event_pool_window",

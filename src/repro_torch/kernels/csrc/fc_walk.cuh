@@ -1,4 +1,4 @@
-// The staged fc column walk (event_fc_window.cu).
+// The staged fc column walk (event_fc.cu, event_fc_window.cu).
 //
 // An fc event (x, y, c, g) adds W[(x * Win + y) * Cin + c, d] * g to every
 // output column d of W (Din, Dout).  A column's adds must come in list
@@ -98,11 +98,13 @@ __device__ __forceinline__ Wt staged(const Cols<Wt>& cl, const int* buf,
 }
 
 // Add one event list (E events and gates, in list order) to this
-// thread's column, `acc` (threads d >= cl.cols hold none).  All threads
-// must call it; on return the scratch may be reused.
-template <typename Wt, typename Acc>
+// thread's column, `acc` (threads d >= cl.cols hold none).  Gates of type
+// G are read raw by walk_end and cast to Acc before they are tested and
+// kept (the per-step kernel's int8 pairing: int8 gates, int32 sums).  All
+// threads must call it; on return the scratch may be reused.
+template <typename Wt, typename G, typename Acc>
 __device__ void walk(const Cols<Wt>& cl, const int32_t* __restrict__ ev,
-                     const Acc* __restrict__ gate, int E, int Win, int Cin,
+                     const G* __restrict__ gate, int E, int Win, int Cin,
                      const Scratch& sc, Acc& acc) {
   const int d = threadIdx.x;
   const int n_walk = walk_end<kThreads>(gate, E, sc.red);
@@ -112,7 +114,7 @@ __device__ void walk(const Cols<Wt>& cl, const int32_t* __restrict__ ev,
         min(kStage, n_walk - base),
         [&](int i, int2& e) {
           const int32_t* x = ev + (size_t)(base + i) * 3;
-          const Acc g = gate[base + i];
+          const Acc g = static_cast<Acc>(gate[base + i]);
           const long long row =
               ((long long)__ldg(x) * Win + __ldg(x + 1)) * Cin + __ldg(x + 2);
           if (g == Acc(0) || row < 0 || row >= cl.Din) return false;

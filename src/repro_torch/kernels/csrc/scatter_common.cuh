@@ -11,9 +11,6 @@
 
 namespace sne {
 
-// events staged in shared memory per pass over the event list
-constexpr int kChunk = 128;
-
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }

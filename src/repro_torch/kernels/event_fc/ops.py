@@ -3,7 +3,9 @@ fused window.
 
 CPU tensors go to the plain PyTorch versions (`ref.py`); CUDA tensors
 launch ``csrc/event_fc.cu`` and ``csrc/event_fc_window.cu`` on the
-current stream, or raise.
+current stream, or raise.  Both kernels run the staged column walk of
+``csrc/fc_walk.cuh`` on one block per (slot, column block), the column
+blocks from :func:`fc_column_block`.
 """
 from __future__ import annotations
 
@@ -21,15 +23,14 @@ from repro_torch.kernels.event_fc.ref import (event_fc_batched_ref,
 
 NAME = "event_fc_batched"
 WINDOW_NAME = "event_fc_window"
-# The window kernel's column blocks (csrc/event_fc_window.cu on
-# csrc/fc_walk.cuh)
+# The column blocks of both kernels (csrc/fc_walk.cuh)
 TARGET_BLOCKS = 132      # the H100's SMs: one block each
 FC_THREADS = 256         # fc_walk.cuh kThreads: at most a column a thread
 SEGMENT = 32             # columns of one 128-byte f32 row segment
 
 
 def fc_column_block(N: int, Dout: int) -> int:
-    """Output columns per block of the fc window kernel.
+    """Output columns per block of the fc kernels (per-step and window).
 
     Enough column blocks a slot that the ``N`` slots' blocks fill the
     card's :data:`TARGET_BLOCKS` SMs, each a whole number of
@@ -77,7 +78,7 @@ def event_fc_batched(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
     with torch.cuda.device(dev):
         err = fn(v.data_ptr(), w.data_ptr(), ev_xyc.data_ptr(),
                  ev_gate.data_ptr(), out.data_ptr(), N, Wi, Ci, w.shape[0],
-                 Dout, ev_xyc.shape[1], code,
+                 Dout, ev_xyc.shape[1], fc_column_block(N, Dout), code,
                  torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(NAME, err)
     LAUNCHES[NAME] += 1

@@ -250,6 +250,43 @@ def test_fc_plain_matches_jax(pairing, N, H, W, C, D, E):
     np.testing.assert_array_equal(got, want)
 
 
+def fc_walk_case(pairing, pattern, N, E, Dout, seed, negative):
+    """Numpy inputs ``(v, w, xyc, gate, in_shape)`` of one per-step fc
+    launch for a gate pattern: an 8x8x4 input (Din 256) onto ``Dout``
+    columns (``pairing`` one of ``PAIRINGS``), events from
+    :func:`_gate_pattern` (rows out of range for "outside", negative
+    coordinates too if ``negative``)."""
+    rng = np.random.default_rng(seed)
+    in_shape = (8, 8, 4)
+    v, w = _arrays(rng, (N, 1, 1, Dout), (int(np.prod(in_shape)), Dout),
+                   pairing)
+    xyc, gate = _gate_pattern(rng, pattern, N, E, in_shape, np.arange(N),
+                              PAIRINGS[pairing][2], negative)
+    return v, w, xyc, gate, in_shape
+
+
+@pytest.mark.parametrize("pattern", [p for p in GATE_PATTERNS
+                                     if p != "outside"])
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+def test_fc_plain_matches_jax_gate_patterns(pairing, pattern):
+    # the gate patterns the CUDA per-step fc is held to on the card, inside
+    # the reference's contract: rows out of range ("outside") are left out,
+    # since the JAX oracle's `jnp.take` fills them, and float gates are 0/1
+    # (the oracle's contract: on the CPU, XLA fuses its multiply and add
+    # into one FMA, which rounds once where the port rounds twice, so a
+    # gate other than 0 or 1 shows a last-bit difference); the integer
+    # pairings keep the non-unit gates, which are exact there
+    v, w, xyc, gate, in_shape = fc_walk_case(pairing, pattern, 4, 48, 11,
+                                             51, negative=False)
+    if pairing == "f32":
+        gate = (gate != 0).astype(gate.dtype)
+    acc = PAIRINGS[pairing][3]
+    got = event_fc_batched(_t(v), _t(w), _t(xyc), _t(gate), in_shape,
+                           out_dtype=_torch_out(pairing)).numpy()
+    np.testing.assert_array_equal(got, _jax("fc", v, w, xyc, gate, in_shape,
+                                            out=acc))
+
+
 @pytest.mark.parametrize("N,Dout,cols,blocks", [
     (8, 512, 32, 128),          # Fig. 6 fc1: 16 column blocks a slot
     (8, 11, 11, 8),             # Fig. 6 fc2: one block a slot
@@ -625,12 +662,12 @@ def test_cuda_kernel_matches_plain(cuda, kind, pairing):
     for n in (4, 24) if not (t == "sparse" and p == "outside")])
 def test_cuda_window_kernel_matches_plain(cuda, kind, tiles, pattern, N, E,
                                           pairing):
-    # E = 200: more than one 128-event chunk of the fc kernel; E = 2500:
-    # more than one 1024-event stage of the conv walk.  At 4
-    # slots each conv band is one slab row; at 24 slots the 11-row slab is
-    # dealt to 4 bands of at most 3 rows (rows 0, 4, 8; 1, 5, 9; 2, 6, 10;
-    # 3, 7), so every patch spans several bands and one band is short; the
-    # 13-column slab leaves the second run of each row half empty.
+    # E = 200 events a timestep; E = 2500: more than one 1024-event stage
+    # of the conv walk.  At 4 slots each conv band is one slab row; at 24
+    # slots the 11-row slab is dealt to 4 bands of at most 3 rows (rows 0,
+    # 4, 8; 1, 5, 9; 2, 6, 10; 3, 7), so every patch spans several bands
+    # and one band is short; the 13-column slab leaves the second run of
+    # each row half empty.
     # Unsorted events, duplicates, non-unit gates, holes, an empty slot and
     # clamped coordinates (GATE_PATTERNS) hold the conv walk's order.
     v, w, xyc, gate, alive, kw = window_case(kind, pairing, tiles, 10, N=N,
@@ -805,6 +842,31 @@ def test_cuda_fc_walk_matches_plain(cuda, pairing, Dout, E, pattern):
     assert LAUNCHES["event_fc_window"] == before + 1
     for g, x in zip(got, want):
         assert g.dtype == x.dtype and torch.equal(g, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", GATE_PATTERNS)
+@pytest.mark.parametrize("Dout,E", [(11, 201), (512, 201), (100, 201),
+                                    (512, 2501)])
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+def test_cuda_fc_batched_walk_matches_plain(cuda, pairing, Dout, E, pattern):
+    # the per-step fc on the staged column walk at 8 slots, in all three
+    # pairings: Fig. 6 fc2's 11 columns (one block a slot; int8 rows off
+    # 4-byte boundaries), fc1's 512 (16 blocks of 32) and 100 (the last
+    # block 4 columns wide); E = 2501 is past one 1024-event stage and a
+    # chunk of staged rows; an odd E leaves gate rows (int8 ones above
+    # all) off a 16-byte boundary.  Duplicate rows, non-unit gates, holes,
+    # an empty slot and rows out of range hold each column's order.
+    v, w, xyc, gate, in_shape = fc_walk_case(pairing, pattern, 8, E, Dout,
+                                             52, negative=True)
+    out = _torch_out(pairing)
+    args = [_t(a).to(cuda) for a in (v, w, xyc, gate)]
+    before = LAUNCHES["event_fc_batched"]
+    got = event_fc_batched(*args, in_shape, out_dtype=out)
+    want = event_fc_batched_ref(*args, in_shape, out_dtype=out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["event_fc_batched"] == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
