@@ -48,7 +48,20 @@ non-zero):
    read just after; fused-network exactly one launch per window and no
    other kernel); one cohort of each lowering is traced; a T = 8 cut of
    two requests is also served by the plain CPU path and must agree
-   bitwise.
+   bitwise;
+5. the streaming runtime on the card: the same network serving a cohort
+   of 16 requests of the 4.9% recipe on 8 slots, under every lowering and
+   both dtype policies: the synchronous ``EventServeEngine.run`` (the
+   oracle), then ``StreamingRuntime`` closed loop (all 16 submitted at
+   once) and open loop (Poisson arrivals at 1.5x the oracle's requests/s),
+   each request bitwise equal to the oracle, the runtime's collect and
+   launch phases under ``torch.cuda.set_sync_debug_mode("error")`` (a
+   launch that waits on the device fails the phase); and, under the
+   default policy, the open loop with an SLO of the open loop's p50
+   end-to-end latency (reported), and the burst of all 16 with an SLO of
+   the closed loop's p50 end-to-end latency, which must evict and
+   complete; every completed request bitwise equal to the oracle.  Launch counts are set to 0 before
+   each lowering's runtime runs and read after them.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -76,6 +89,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate (data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 LIB_RTOL, LIB_ATOL = 1e-4, 1e-3   # library yardstick vs kernel (f32 order)
 COHORTS = (("1.2%", 450e3), ("4.9%", 3.4e6))   # (target activity, rate_hz)
+# phase 5: requests of the 4.9% recipe, twice the slots, so that they
+# queue; the open loop's Poisson rate over the oracle's requests/s
+STREAM_REQUESTS, OPEN_LOOP_LOAD = 16, 1.5
 # the layer-0 cohort whose windows feed phase 2b, and how many windows
 # it serves first (so the membranes are those of a running request)
 WINDOW_COHORT, WARM_WINDOWS = 0, 3
@@ -1239,6 +1255,218 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the streaming runtime on the card
+# ---------------------------------------------------------------------------
+
+def _no_sync(fn):
+    """``fn`` run under ``torch.cuda.set_sync_debug_mode("error")``: any
+    operation in it that waits on the device raises."""
+    import torch
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return strict
+
+
+def _engine(qn, policy, dev):
+    from repro_torch.serve import EventServeEngine
+    return EventServeEngine(qn.spec, qn.params_for(policy.dtype_policy),
+                            n_slots=N_SLOTS, window=WINDOW, device=dev,
+                            policy=policy)
+
+
+def _runtime(qn, policy, dev):
+    """A fresh engine under ``policy`` whose collect and launch phases may
+    not wait on the device, wrapped by a ``StreamingRuntime`` with a queue
+    of :data:`STREAM_REQUESTS` on a wall clock that starts now (build the
+    requests first: arrival times count from the clock's zero)."""
+    from repro_torch.serve.runtime import StreamingRuntime, WallClock
+    eng = _engine(qn, policy, dev)
+    eng._collect_phase = _no_sync(eng._collect_phase)
+    eng._launch_phase = _no_sync(eng._launch_phase)
+    return StreamingRuntime(eng, queue_capacity=STREAM_REQUESTS,
+                            clock=WallClock(), policy=policy), eng
+
+
+def _same_as_oracle(reqs, oracle: dict, what: str) -> int:
+    """Every completed request of ``reqs`` equals the oracle's request of
+    its uid, exactly; returns how many completed."""
+    import numpy as np
+    uids = list(oracle["uids"])
+    done = [r for r in reqs if r.done]
+    if done:
+        rows = [uids.index(r.uid) for r in done]
+        assert_same(results(done), {k: np.asarray(v)[rows]
+                                    for k, v in oracle.items()
+                                    if k != "uids"}, what)
+    return len(done)
+
+
+def _report_line(rep: dict) -> str:
+    return (f"p50/p99 window {rep['p50_window_latency_ms']:.3f}/"
+            f"{rep['p99_window_latency_ms']:.3f} ms, p50/p99 end to end "
+            f"{rep['p50_e2e_latency_ms']:.1f}/{rep['p99_e2e_latency_ms']:.1f}"
+            f" ms, mean queue wait {rep['mean_queue_wait_ms']:.1f} ms, "
+            f"{rep['sustained_events_per_s']:.0f} events/s sustained")
+
+
+def _slo_run(qn, policy, dev, oracle, reqs, slo_ms, rate, what, smi):
+    """Serve ``reqs`` under an SLO of ``slo_ms``: open loop at ``rate``
+    (Poisson, seed 0), or all submitted at once when ``rate`` is None;
+    every completed request must equal the oracle exactly, and the
+    engine's evictions the runtime's.  Returns the report."""
+    import torch
+    from repro_torch.serve.runtime import PoissonLoadGen
+    rt, eng = _runtime(qn, policy, dev)
+    eng.evict_slot = _no_sync(eng.evict_slot)
+    slo = slo_ms / 1e3
+    if rate is None:
+        rt.submit(reqs, slo_s=slo)
+        rep = rt.serve()
+    else:
+        rep = rt.serve(PoissonLoadGen(reqs, rate_hz=rate, seed=0, slo_s=slo,
+                                      start_s=rt.clock.now()))
+    torch.cuda.synchronize()
+    n_done = _same_as_oracle(reqs, oracle, what)
+    if not (n_done == rep["completed"]
+            and eng.stats["evicted"] == rep["evicted_deadline"]):
+        raise AssertionError(f"{what}: {rep}, engine {eng.stats}")
+    reused = sum(1 for s in rt.requests if s.status == "done"
+                 and any(v.status == "evicted" and v.slot == s.slot
+                         and v.finish_s <= s.admit_s for v in rt.requests))
+    log(f"  {what} {slo_ms:.1f} ms: {rep['evicted_deadline']} evicted, "
+        f"{rep['expired_in_queue']} expired in the queue, {n_done} "
+        f"completed ({reused} in a slot an eviction freed), every completed "
+        f"one bitwise equal to sync; {_report_line(rep)} [{smi}]")
+    return {**rep, "slo_s": slo, "completed_in_evicted_slots": reused}
+
+
+def phase_streaming(spec, qn, dev, smi: str) -> dict:
+    """The streaming runtime under every lowering and both dtype policies:
+    synchronous oracle, closed loop, open loop, and one eviction run."""
+    import torch
+    from repro_torch.core.policies import ExecutionPolicy
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.serve.runtime import PoissonLoadGen
+    T = spec.n_timesteps
+
+    base = _cohort(spec, COHORTS[1][1], 100, STREAM_REQUESTS, T)
+
+    def cohort():
+        # fresh request objects on the same (read-only) streams: building
+        # a full-width cohort takes seconds of host time
+        return [dataclasses.replace(r) for r in base]
+    rows, launches = [], {}
+    for fusion in LOWERINGS:
+        runtime_launches = {k: 0 for k in LAUNCHES}
+        step_calls = 0
+        for dp in ("f32-carrier", "int8-native"):
+            pol = ExecutionPolicy(dtype_policy=dp, fusion_policy=fusion)
+            what = f"streaming {fusion} {dp}"
+            # the synchronous oracle and the closed loop in turns (sync,
+            # closed, closed, sync): host time swings between runs
+            sync_rps, closed_rps, closed, oracle = [], [], None, None
+            for which in ("sync", "closed", "closed", "sync"):
+                reqs = cohort()
+                if which == "sync":
+                    eng = _engine(qn, pol, dev)
+                    t0 = time.perf_counter()
+                    eng.run(reqs)
+                    torch.cuda.synchronize()
+                    sync_rps.append(len(reqs) / (time.perf_counter() - t0))
+                    if oracle is None:
+                        oracle = {"uids": [r.uid for r in reqs],
+                                  **results(reqs)}
+                    else:
+                        _same_as_oracle(reqs, oracle, f"{what} sync again")
+                    continue
+                reset_launch_counts()
+                rt, eng = _runtime(qn, pol, dev)
+                t0 = time.perf_counter()
+                rt.submit(reqs)
+                rep = rt.serve()
+                torch.cuda.synchronize()
+                closed_rps.append(len(reqs) / (time.perf_counter() - t0))
+                for k in LAUNCHES:
+                    runtime_launches[k] += LAUNCHES[k]
+                step_calls += eng.stats["step_calls"]
+                if _same_as_oracle(reqs, oracle, f"{what} closed loop") \
+                        != len(reqs):
+                    raise AssertionError(f"{what} closed loop: not every "
+                                         f"request completed: {rep}")
+                closed = closed or rep
+            rps_sync = sum(sync_rps) / len(sync_rps)
+            ratio = sum(closed_rps) / len(closed_rps) / rps_sync
+            row = {"fusion": fusion, "policy": dp, "requests": len(reqs),
+                   "sync_requests_per_s": sync_rps,
+                   "closed_loop_requests_per_s": closed_rps,
+                   "closed_over_sync": ratio, "closed_loop": closed}
+
+            reqs = cohort()
+            reset_launch_counts()
+            rt, eng = _runtime(qn, pol, dev)
+            rate = OPEN_LOOP_LOAD * rps_sync
+            opened = rt.serve(PoissonLoadGen(reqs, rate_hz=rate, seed=0,
+                                             start_s=rt.clock.now()))
+            torch.cuda.synchronize()
+            for k in LAUNCHES:
+                runtime_launches[k] += LAUNCHES[k]
+            step_calls += eng.stats["step_calls"]
+            if _same_as_oracle(reqs, oracle, f"{what} open loop") != len(
+                    reqs):
+                raise AssertionError(f"{what} open loop: not every request "
+                                     f"completed: {opened}")
+            row["open_loop"] = {**opened, "rate_hz": rate}
+            log(f"  {fusion} {dp}: req/s sync, closed, closed, sync "
+                f"{sync_rps[0]:.3f}, {closed_rps[0]:.3f}, {closed_rps[1]:.3f},"
+                f" {sync_rps[1]:.3f} (closed / sync {ratio:.3f}x); closed "
+                f"loop {_report_line(closed)}; open loop at {rate:.3f} "
+                f"req/s: {_report_line(opened)}; bitwise equal to sync "
+                f"[{smi}]")
+
+            if fusion == "fused-window" and dp == "f32-carrier":
+                row["eviction"] = {
+                    # the open loop under an SLO of its p50 end to end:
+                    # its latencies are nearly all one service time, so
+                    # whether this evicts is up to the host's noise;
+                    # reported, every completed request checked
+                    "open_loop": _slo_run(qn, pol, dev, oracle, cohort(),
+                                          opened["p50_e2e_latency_ms"],
+                                          rate, f"{what} open-loop SLO",
+                                          smi),
+                    # the burst (all submitted at once) under an SLO of the
+                    # closed loop's p50 end to end: the first wave ends in
+                    # about one service time, the second needs about two,
+                    # so it must evict and complete
+                    "burst": _slo_run(qn, pol, dev, oracle, cohort(),
+                                      closed["p50_e2e_latency_ms"], None,
+                                      f"{what} burst SLO", smi)}
+                burst = row["eviction"]["burst"]
+                if not (burst["evicted_deadline"] >= 1
+                        and burst["completed"] >= 1):
+                    raise AssertionError(f"{what} burst SLO run: {burst}")
+            rows.append(row)
+        launches[fusion] = runtime_launches
+        missing = [k for k in LAUNCHES
+                   if PATH_OF[k] == fusion and runtime_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"the {fusion} runtime runs launched no "
+                                 f"{missing}")
+        if fusion == "fused-network" and not (
+                sum(runtime_launches.values())
+                == runtime_launches["network_window"] == step_calls):
+            raise AssertionError(f"fused-network runtime: {runtime_launches}"
+                                 f" over {step_calls} windows")
+        log(f"  launches of the {fusion} runtime runs: {runtime_launches}")
+    torch.cuda.synchronize()
+    return {"runs": rows, "launches": launches}
+
+
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
     the window kernels and the megakernel with the sparse bitmaps the main
@@ -1321,6 +1549,9 @@ def main() -> int:
     log("phase 4: full-width Fig. 6 serving (the main path)")
     main_path = phase_full_width(spec, qn, dev, smi)
 
+    log("phase 5: the streaming runtime on the full-width Fig. 6 network")
+    streaming = phase_streaming(spec, qn, dev, smi)
+
     # a kernel of no serving path reports its count summed over every
     # lowering's run (phase 4 holds it at 0)
     launches = {k: main_path["launches"][PATH_OF[k]][k] if PATH_OF[k]
@@ -1332,12 +1563,14 @@ def main() -> int:
                "fused_network_plan": main_path["plans"],
                "peak_device_memory_bytes":
                    main_path["peak_device_memory_bytes"],
-               "trace": main_path["trace"], "build_s": secs,
+               "trace": main_path["trace"], "streaming": streaming,
+               "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, **summary}, f, indent=1)
-    log(json.dumps({k: v for k, v in summary.items() if k != "trace"}))
+    log(json.dumps({k: v for k, v in summary.items()
+                    if k not in ("trace", "streaming")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

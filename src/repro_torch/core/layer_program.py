@@ -101,6 +101,11 @@ class LayerOp:
     halo: int
     step_capacity: int
     dtype_policy: str = F32_CARRIER
+    # conv: (padding, padding, 0), the shift of events into halo
+    # coordinates, on the program's device; built once at compile time
+    # (a ``torch.tensor`` per call is a blocking host-to-device copy)
+    event_offset: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     @property
     def kind(self) -> str:
@@ -220,8 +225,10 @@ def _compile_cached(spec: "SNNSpec", step_capacities, dtype_policy: str,
         validate_policy_layer(l, i, dtype_policy)
         cap = (step_capacities[i] if step_capacities is not None
                else layer_step_capacity(l))
+        off = (torch.tensor([l.padding, l.padding, 0], dtype=torch.int32,
+                            device=device) if l.kind == "conv" else None)
         ops.append(LayerOp(index=i, spec=l, halo=_halo(l), step_capacity=cap,
-                           dtype_policy=dtype_policy))
+                           dtype_policy=dtype_policy, event_offset=off))
     return LayerProgram(spec=spec, ops=tuple(ops), dtype_policy=dtype_policy,
                         fusion_policy=fusion_policy,
                         tile_sparsity=tile_sparsity, device=device)
@@ -244,7 +251,7 @@ def clip_state(v: torch.Tensor, p: LifParams) -> torch.Tensor:
     """8-bit-state saturation (no-op when the layer has no clip)."""
     if p.state_clip is None:
         return v
-    c = torch.as_tensor(p.state_clip, dtype=v.dtype, device=v.device)
+    c = torch.full((), p.state_clip, dtype=v.dtype, device=v.device)
     return torch.clamp(v, -c, c)
 
 
@@ -279,10 +286,8 @@ def scatter_events_batched(op: LayerOp, params: EConvParams,
     gate = gate.to(g_dt).contiguous()
     xyc = xyc.to(torch.int32)
     if spec.kind == "conv":
-        off = torch.tensor([spec.padding, spec.padding, 0], dtype=torch.int32,
-                           device=xyc.device)
-        return event_conv_batched(vp, w, (xyc + off).contiguous(), gate,
-                                  out_dtype=v_out)
+        return event_conv_batched(vp, w, (xyc + op.event_offset).contiguous(),
+                                  gate, out_dtype=v_out)
     xyc = xyc.contiguous()
     if spec.kind == "pool":
         return event_pool_batched(vp, w, xyc, gate, stride=spec.stride,
@@ -424,11 +429,9 @@ def layer_window(op: LayerOp, params: EConvParams, vp: torch.Tensor,
     native = op.dtype_policy == INT8_NATIVE
     w = params.w
     if spec.kind == "conv":
-        off = torch.tensor([spec.padding, spec.padding, 0], dtype=torch.int32,
-                           device=xyc.device)
-        return event_conv_window(vp, w, (xyc + off).contiguous(), gate, alive,
-                                 lif=op.lif, halo=op.halo, native=native,
-                                 tiles=tiles)
+        return event_conv_window(vp, w, (xyc + op.event_offset).contiguous(),
+                                 gate, alive, lif=op.lif, halo=op.halo,
+                                 native=native, tiles=tiles)
     if spec.kind == "pool":
         return event_pool_window(vp, w, xyc, gate, alive, lif=op.lif,
                                  stride=spec.stride, native=native,
@@ -626,8 +629,7 @@ def network_launch(params: Sequence[EConvParams], states, ev_xyc, ev_gate,
     xyc = ev_xyc.transpose(0, 1)
     op0 = program.ops[0]
     if op0.kind == "conv":
-        xyc = xyc + torch.tensor([op0.spec.padding, op0.spec.padding, 0],
-                                 dtype=torch.int32, device=xyc.device)
+        xyc = xyc + op0.event_offset
     return NetworkLaunch(
         tuple(states), tuple(p.w for p in params), xyc.contiguous(),
         ev_gate.transpose(0, 1).contiguous(),

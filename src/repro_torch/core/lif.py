@@ -40,10 +40,11 @@ class LifParams:
 
 def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     """``x`` as a tensor of ``like``'s dtype and device (the reference's
-    ``jnp.asarray(x, v.dtype)``)."""
+    ``jnp.asarray(x, v.dtype)``); a Python number is filled in on the
+    device, not copied there (a copy would wait on the stream)."""
     if isinstance(x, torch.Tensor):
         return x.to(device=like.device, dtype=like.dtype)
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def apply_leak(v: torch.Tensor, leak, dt: Union[int, float, torch.Tensor],

@@ -5,8 +5,9 @@ Counterpart of the recording half of ``repro.data.events_ds``: a
 loaders for the portable ``.npz`` format and AEDAT3.1 (the DVS-Gesture
 release format), binning into the engine's ``EventStream``
 (:func:`recording_to_stream`), segmentation into requests
-(:func:`segment_recording`) and the numpy-only synthetic recording
-(:func:`synthesize_recording`).  All host-side numpy; streams are CPU
+(:func:`segment_recording`), the numpy-only synthetic recording
+(:func:`synthesize_recording`) and the paced replay of segments into an
+engine (:class:`ReplayClient`).  All host-side numpy; streams are CPU
 tensors, which the engine's collector reads as numpy.
 """
 from __future__ import annotations
@@ -15,7 +16,8 @@ import dataclasses
 import os
 import pathlib
 import struct
-from typing import List, Optional, Tuple
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -237,6 +239,61 @@ def segment_recording(rec: DVSRecording, in_shape: Tuple[int, int, int],
         out.append(EventRequest(uid=uid_base + i, stream=stream,
                                 n_timesteps=n_timesteps))
     return out
+
+
+class ReplayClient:
+    """Replays recording segments into an engine at sensor pace.
+
+    Each engine window covers ``window * window_us`` of sensor time; the
+    client admits segment *i* no earlier than its recording-relative
+    arrival time and sleeps off whatever wall-time budget remains after
+    each engine step — i.e. real inter-window timing, scaled by
+    ``speedup`` (1.0 = true real time).  With the idle skip on, sparse
+    stretches of the recording leave that budget almost entirely to
+    sleeping, which is exactly the serving-scale idle-costs-nothing story.
+    """
+
+    def __init__(self, requests: Sequence["EventRequest"], n_timesteps: int,
+                 window_us: int, speedup: float = 1000.0):
+        if speedup <= 0:
+            raise ValueError("speedup must be > 0")
+        self.requests = list(requests)
+        self.n_timesteps = n_timesteps
+        self.window_us = window_us
+        self.speedup = speedup
+        self.stats = {"wall_s": 0.0, "slept_s": 0.0, "stalled_windows": 0}
+
+    def run(self, engine, max_windows: int = 100_000) -> None:
+        """Admit at arrival times, step, pace; returns when all are done."""
+        seg_s = self.n_timesteps * self.window_us * 1e-6 / self.speedup
+        win_s = engine.W * self.window_us * 1e-6 / self.speedup
+        pending = list(self.requests)
+        arrivals = [i * seg_s for i in range(len(pending))]
+        start = time.time()
+        for _ in range(max_windows):
+            now = time.time() - start
+            while (pending and arrivals[0] <= now
+                   and engine.try_admit(pending[0])):
+                pending.pop(0)
+                arrivals.pop(0)
+            if pending and arrivals[0] <= now and engine.n_free == 0:
+                self.stats["stalled_windows"] += 1   # back-pressure visible
+            t_win = time.time()
+            n = engine.step()
+            if n == 0 and not pending:
+                break
+            # real inter-window timing: a window of sensor time must not be
+            # consumed faster than the (scaled) sensor emits it
+            budget = win_s - (time.time() - t_win)
+            if n == 0 and pending:
+                # engine drained before the next arrival — wait for it
+                budget = max(budget, arrivals[0] - (time.time() - start))
+            if budget > 0:
+                self.stats["slept_s"] += budget
+                time.sleep(budget)
+        else:
+            raise RuntimeError("max_windows exceeded before drain")
+        self.stats["wall_s"] = time.time() - start
 
 
 def synthesize_recording(seed: int = 0, width: int = 12, height: int = 12,

@@ -1,10 +1,38 @@
-"""Event-domain serving: the slot-batched engine and per-request telemetry
-(counterparts of ``repro.serve``)."""
+"""Event-stream serving: the public API (counterpart of ``repro.serve``;
+the mesh backend is not ported yet).
+
+    from repro_torch.serve import (EventRequest, EventServeEngine,
+                                   StreamingRuntime, ExecutionPolicy)
+
+Module layout behind the facade:
+
+  * `repro_torch.serve.event_engine` — slot-batched engine + request type;
+  * `repro_torch.serve.runtime`      — streaming runtime (admission, SLOs,
+    load generation, clocks, metrics);
+  * `repro_torch.serve.telemetry`    — per-request energy/event telemetry.
+"""
+from repro_torch.core.policies import ExecutionPolicy, all_policies
 from repro_torch.serve.event_engine import (EventRequest, EventServeEngine,
                                             event_bucket, event_bucket_ladder)
-from repro_torch.serve.telemetry import (RequestTelemetry, request_telemetry,
-                                         summarize)
+from repro_torch.serve.runtime import (ManualClock, PoissonLoadGen,
+                                       StreamingMetrics, StreamingRuntime,
+                                       StreamRequest, WallClock,
+                                       requests_from_recording,
+                                       requests_synthetic)
+from repro_torch.serve.telemetry import (RequestTelemetry, proportionality_r2,
+                                         request_telemetry, summarize)
 
-__all__ = ["EventRequest", "EventServeEngine", "event_bucket",
-           "event_bucket_ladder", "RequestTelemetry", "request_telemetry",
-           "summarize"]
+__all__ = [
+    # engine
+    "EventRequest", "EventServeEngine", "event_bucket",
+    "event_bucket_ladder",
+    # execution policy (re-export: the engine's construction knob)
+    "ExecutionPolicy", "all_policies",
+    # streaming runtime
+    "StreamingRuntime", "StreamRequest", "PoissonLoadGen",
+    "StreamingMetrics", "WallClock", "ManualClock",
+    "requests_from_recording", "requests_synthetic",
+    # telemetry
+    "RequestTelemetry", "request_telemetry", "summarize",
+    "proportionality_r2",
+]

@@ -20,15 +20,22 @@ window's occupancy on the :func:`event_bucket_ladder`) before the step
 and scattered back after it.  Results are bitwise those of the full batch.
 
 The step runs eagerly; membranes and class counts stay on the device
-between windows, and the per-window counters are read back once, at
-retire.
+between windows.  A window is three phases (:meth:`EventServeEngine.step`
+runs them back to back; `serve.runtime.StreamingRuntime` overlaps them):
+collect (host numpy only), launch (the schedule staged through pinned
+memory and copied without blocking, the step enqueued on the current
+stream, its counters and the finishing slots' class counts queued for a
+non-blocking copy back, a CUDA event recorded) and retire (the one wait,
+on that event).  One stream orders a window's scatter-back, an
+eviction's zeroing and the next window's gather, so nothing in collect or
+launch waits on the device.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from functools import lru_cache
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +71,22 @@ class EventRequest:
     done: bool = False
     _validated: bool = dataclasses.field(default=False, repr=False)
 
+    @staticmethod
+    def from_dense(uid: int, spikes, capacity: Optional[int] = None
+                   ) -> "EventRequest":
+        """Build a request from a dense ``(T, H, W, C)`` spike tensor (or
+        numpy array); the capacity defaults to the event count rounded up
+        to a multiple of 8 (at least 8)."""
+        spikes = torch.as_tensor(spikes)
+        if capacity is None:
+            n = int((spikes != 0).sum())
+            capacity = max(8, ((n + 7) // 8) * 8)
+        return EventRequest(uid=uid,
+                            stream=ev.dense_to_events(spikes, capacity),
+                            n_timesteps=int(spikes.shape[0]),
+                            dropped_at_ingest=ev.overflow_count(spikes,
+                                                                capacity))
+
 
 @lru_cache(maxsize=32)
 def event_bucket_ladder(cap: int) -> Tuple[int, ...]:
@@ -92,8 +115,14 @@ def event_bucket(n: int, cap: int) -> int:
 
 
 @dataclasses.dataclass
-class _Collected:
-    """One window's host-side collector output, pre-launch."""
+class CollectedWindow:
+    """One window's host-side collector output, pre-launch.
+
+    Host state only, so a window can be collected while the previous one
+    computes.  ``part_idx`` is the participating slot set: active slots
+    with timesteps left (the streaming runtime keeps a finished slot
+    active until its last window retires).
+    """
 
     xyc: np.ndarray        # (W, N, E0, 3) int32 collector bins
     gate: np.ndarray       # (W, N, E0) f32 validity gates
@@ -101,6 +130,24 @@ class _Collected:
     n_win_ev: np.ndarray   # (N,) int64 raw events per slot this window
     max_bucket: int        # largest (slot, timestep) bucket fill
     part_idx: np.ndarray   # participating slot indices
+
+
+@dataclasses.dataclass
+class InflightWindow:
+    """A launched window not yet retired.
+
+    ``counts`` and ``drops`` are host tensors (pinned on CUDA) whose
+    copies from the device were queued at launch; they hold the window's
+    counters once ``ready`` has passed (None on the CPU, where the copies
+    are done at once).  :meth:`EventServeEngine._retire_phase` waits on it.
+    """
+
+    idx: np.ndarray        # launched slot indices
+    n_compact: int         # real batch rows (the rest are dummy tail)
+    full_batch: bool       # batch position == slot index (no compaction)
+    counts: torch.Tensor   # (L, batch) per-layer consumed events
+    drops: torch.Tensor    # (L, batch) inter-layer overflow
+    ready: Optional[torch.cuda.Event]
 
 
 class EventServeEngine:
@@ -131,7 +178,7 @@ class EventServeEngine:
         if pol.backend != BACKEND_LOCAL:
             raise NotImplementedError(
                 f"backend {pol.backend!r} is not ported to the PyTorch/CUDA "
-                f"package yet (ROADMAP Queue A item 8, the multi-device "
+                f"package yet (ROADMAP Queue A item 5, the multi-device "
                 f"backend); use backend={BACKEND_LOCAL!r}")
         self.device = resolve_device(device)
         self.policy = pol
@@ -184,7 +231,7 @@ class EventServeEngine:
         self.dense_ts = np.zeros((n_slots,), np.int64)
         self.skipped_windows = np.zeros((n_slots,), np.int64)
         self.stats = {"windows": 0, "admitted": 0, "completed": 0,
-                      "collector_dropped": 0, "out_of_range_dropped": 0,
+                      "evicted": 0, "collector_dropped": 0, "out_of_range_dropped": 0,
                       "step_calls": 0, "kernel_launches": 0,
                       "dense_slot_windows": 0, "skipped_slot_windows": 0,
                       "leak_flushes": 0,
@@ -200,21 +247,53 @@ class EventServeEngine:
         # power-of-two ceiling is 2^(b-1)
         self.bucket_fill_hist = np.zeros(
             (int(self.caps[0]).bit_length() + 2,), np.int64)
+        # slot -> (class-count snapshot on the host, its copy's event):
+        # taken at the launch of the window a slot's request finishes with
+        self._final_counts: Dict[int, Tuple[torch.Tensor,
+                                            Optional[torch.cuda.Event]]] = {}
 
     # --- helpers -----------------------------------------------------------
 
-    def _reset_slot_state(self, slot: int) -> np.ndarray:
-        """Zero one slot's membranes and class counts; return its counts."""
-        row = self.class_counts[slot].cpu().numpy().copy()   # no alias
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; on CUDA staged through
+        pinned memory and copied without blocking (the caching host
+        allocator keeps the pinned block until its copy has run)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, *tensors: torch.Tensor):
+        """Queue copies of device tensors to the host: ``(copies, event)``.
+
+        On CUDA the copies go to pinned tensors without blocking, and hold
+        their values once the returned event has passed; on the CPU they
+        are done at once and the event is None.
+        """
+        if self.device.type != "cuda":
+            return tuple(t.clone() for t in tensors), None
+        out = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                pin_memory=True).copy_(t, non_blocking=True)
+                    for t in tensors)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return out, ready
+
+    def _zero_slot(self, slot: int) -> None:
+        """Zero one slot's membranes and class counts, in stream order."""
         for v in self.states:
             v[slot].zero_()
         self.class_counts[slot].zero_()
-        return row
 
     @property
     def n_active(self) -> int:
         """Number of slots currently holding an admitted request."""
         return int(self.active.sum())
+
+    @property
+    def n_free(self) -> int:
+        """Number of slots available for admission."""
+        return self.N - self.n_active
 
     # --- admission ---------------------------------------------------------
 
@@ -282,12 +361,25 @@ class EventServeEngine:
     # --- the collector ------------------------------------------------------
 
     def _participating(self) -> np.ndarray:
-        """Active slots that still have timesteps to serve."""
+        """Active slots that still have timesteps to serve (under
+        :meth:`step` the active set; the streaming runtime keeps a
+        finished slot active until its last window retires)."""
         return np.asarray(
             [s for s in np.nonzero(self.active)[0]
              if self.tau[s] < self.slot_req[s].n_timesteps], np.int64)
 
-    def _collect_window(self, part_idx: np.ndarray) -> _Collected:
+    def _collect_phase(self) -> Optional[CollectedWindow]:
+        """Collect one window of host work, or None if no slot has any.
+
+        Host numpy on host state only: safe while an earlier window is
+        still computing on the device.
+        """
+        part_idx = self._participating()
+        if len(part_idx) == 0:
+            return None
+        return self._collect_window(part_idx)
+
+    def _collect_window(self, part_idx: np.ndarray) -> CollectedWindow:
         """Bin each participating slot's next ``W`` timesteps of events.
 
         A (slot, timestep) bucket holds at most ``caps[0]`` events; the
@@ -335,34 +427,61 @@ class EventServeEngine:
                     xyc[dt, slot, :k, 2] = rows[:, 3]
                     gate[dt, slot, :k] = 1.0
             self.stats["collected_events"] += int(n_win_ev[slot])
-        return _Collected(xyc=xyc, gate=gate, alive=alive, n_win_ev=n_win_ev,
-                          max_bucket=max_bucket, part_idx=part_idx)
+        return CollectedWindow(xyc=xyc, gate=gate, alive=alive,
+                               n_win_ev=n_win_ev, max_bucket=max_bucket,
+                               part_idx=part_idx)
 
     # --- stepping -----------------------------------------------------------
 
     def step(self) -> int:
         """Advance all active slots one window; returns #active before.
 
-        Collect, launch (idle slots skip), retire, then finish the slots
-        whose request completed.
+        The synchronous composition of the phases the streaming runtime
+        overlaps: collect, launch (idle slots skip), retire, then finish
+        the slots whose request completed.  The runtime's oracle.
         """
         n_active = self.n_active
         if n_active == 0:
             return 0
-        part_idx = self._participating()
-        if len(part_idx) == 0:
+        col = self._collect_phase()
+        if col is None:          # cannot happen under synchronous stepping
             return n_active
-        col = self._collect_window(part_idx)
-        act_idx = col.part_idx
-        dense_idx = (act_idx[col.n_win_ev[act_idx] > 0] if self.idle_skip
-                     else act_idx)
-        if len(dense_idx):
-            self._launch_window(dense_idx, col)
-        for slot in self._account_window(col, dense_idx):
+        inflight, finished = self._launch_phase(col)
+        if inflight is not None:
+            self._retire_phase(inflight)
+        for slot in finished:
             self._finish(slot)
         return n_active
 
-    def _account_window(self, col: _Collected,
+    def _launch_phase(self, col: CollectedWindow
+                      ) -> Tuple[Optional[InflightWindow], List[int]]:
+        """Launch one collected window and advance the host bookkeeping.
+
+        Enqueues the step and the copies back without waiting on the
+        device.  Returns the in-flight window (None when every
+        participating slot was idle-skipped) and the slots whose request
+        completed with it; their class counts are copied back with the
+        window, and callers :meth:`_finish` them only after it retired.
+        """
+        dense_idx = self._select_dense(col)
+        inflight = (self._launch_window(dense_idx, col) if len(dense_idx)
+                    else None)
+        finished = self._account_window(col, dense_idx)
+        if finished:
+            (host,), ready = self._to_host(self.class_counts)
+            for slot in finished:
+                self._final_counts[slot] = (host, ready)
+        return inflight, finished
+
+    def _select_dense(self, col: CollectedWindow) -> np.ndarray:
+        """Participating slots that launch this window: with idle skip, a
+        slot whose window holds no input event is deferred instead."""
+        act_idx = col.part_idx
+        if self.idle_skip:
+            return act_idx[col.n_win_ev[act_idx] > 0]
+        return act_idx
+
+    def _account_window(self, col: CollectedWindow,
                         dense_idx: np.ndarray) -> List[int]:
         """Defer idle slots' leak, advance time cursors, and return the
         slots whose request completed with this window."""
@@ -389,8 +508,10 @@ class EventServeEngine:
         """Round up to a power of two (capped)."""
         return min(1 << max(n - 1, 0).bit_length(), cap)
 
-    def _launch_window(self, idx: np.ndarray, col: _Collected) -> None:
-        """Compact the stepping slots, run the window step, read back.
+    def _launch_window(self, idx: np.ndarray,
+                       col: CollectedWindow) -> InflightWindow:
+        """Compact the stepping slots, enqueue the window step and the
+        copies of its counters back; wait on nothing.
 
         Without idle skip this is the full batch (all N slots, full event
         axis) — the reference the compacted path matches bit for bit.
@@ -420,22 +541,20 @@ class EventServeEngine:
             alive_w[:, A:] = 0.0
         full_batch = len(gidx) == self.N and bool(
             (gidx == np.arange(self.N)).all())
-        dev = self.device
         if full_batch:
             states_c, cc_c = self.states, self.class_counts
         else:
-            gj = torch.as_tensor(gidx, device=dev)
+            gj = self._to_device(gidx)
             states_c = tuple(v.index_select(0, gj) for v in self.states)
             cc_c = self.class_counts.index_select(0, gj)
         states_c, cc_c, counts, drops = window_step(
-            self.params, states_c, cc_c,
-            torch.from_numpy(xyc_w).to(dev), torch.from_numpy(gate_w).to(dev),
-            torch.from_numpy(alive_w).to(dev), torch.from_numpy(pre).to(dev),
-            program=self.program)
+            self.params, states_c, cc_c, self._to_device(xyc_w),
+            self._to_device(gate_w), self._to_device(alive_w),
+            self._to_device(pre), program=self.program)
         if full_batch:
             self.states, self.class_counts = tuple(states_c), cc_c
         else:
-            real = torch.as_tensor(idx, device=dev)
+            real = self._to_device(idx)
             for v, sc in zip(self.states, states_c):
                 v[real] = sc[:A]
             self.class_counts[real] = cc_c[:A]
@@ -463,10 +582,19 @@ class EventServeEngine:
         self.stats["kernel_launches"] += (
             1 if fusion == FUSED_NETWORK
             else L if fusion == FUSED_WINDOW else self.W * L)
-        # retire: the one device-to-host read of the window
-        counts_np = counts.cpu().numpy().astype(np.float64)
-        drops_np = drops.cpu().numpy().astype(np.float64)
-        if full_batch:
+        (counts_h, drops_h), ready = self._to_host(counts, drops)
+        return InflightWindow(idx=idx, n_compact=A, full_batch=full_batch,
+                              counts=counts_h, drops=drops_h, ready=ready)
+
+    def _retire_phase(self, w: InflightWindow) -> None:
+        """Wait for one launched window's counters and account them: the
+        only phase that waits on the device."""
+        if w.ready is not None:
+            w.ready.synchronize()
+        counts_np = w.counts.numpy().astype(np.float64)
+        drops_np = w.drops.numpy().astype(np.float64)
+        idx, A = w.idx, w.n_compact
+        if w.full_batch:
             self.acc_counts[:, idx] += counts_np[:, idx]
             self.acc_drops[:, idx] += drops_np[:, idx]
             self.total_drops += drops_np[:, idx].sum(axis=1)
@@ -507,9 +635,34 @@ class EventServeEngine:
             "bucket_fill_hist": [int(h) for h in hist[:last]],
         }
 
-    def _finish(self, slot: int) -> None:
+    def evict_slot(self, slot: int) -> Optional[EventRequest]:
+        """Release a slot without completing its request (SLO eviction).
+
+        The slot's state is zeroed without being read, in stream order
+        after any launched window that includes it, and the slot is
+        admissible again at once.  Returns the evicted request, or None
+        if the slot was free.
+        """
         req = self.slot_req[slot]
-        cc = self._reset_slot_state(slot)
+        if req is None:
+            return None
+        self.slot_req[slot] = None
+        self.active[slot] = False
+        self._ev[slot] = None
+        self._final_counts.pop(slot, None)
+        self._zero_slot(slot)
+        self.stats["evicted"] += 1
+        return req
+
+    def _finish(self, slot: int) -> None:
+        """Complete a slot's request from the class counts copied back at
+        the launch of its last window, then zero the slot."""
+        req = self.slot_req[slot]
+        host, ready = self._final_counts.pop(slot)
+        if ready is not None:
+            ready.synchronize()
+        cc = host[slot].numpy().copy()      # no alias of a shared snapshot
+        self._zero_slot(slot)
         req.class_counts = cc
         req.prediction = int(np.argmax(cc))
         per_layer = self.acc_counts[:, slot]

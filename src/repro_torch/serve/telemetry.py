@@ -5,6 +5,8 @@ event counts the engine measured through the analytic SNE model
 (`core.engine`) into what the inference would cost on the ASIC.  Two
 latencies per request: ``sne_time_s`` (mapping mode 2, serialised) and
 ``sne_time_par_s`` (mapping mode 1, layers spread over slices).
+:func:`proportionality_r2` checks the paper's energy-proportionality
+claim over a batch of records.
 """
 from __future__ import annotations
 
@@ -44,6 +46,11 @@ class RequestTelemetry:
     def total_sops(self) -> float:
         """Synaptic operations across all layers of this inference."""
         return float(sum(self.per_layer_sops))
+
+    @property
+    def sne_rate_hz(self) -> float:
+        """Analytic inference rate on the modelled SNE (1 / time)."""
+        return 1.0 / self.sne_time_s if self.sne_time_s > 0 else float("inf")
 
 
 def request_telemetry(cfg: SneConfig, *, uid: int, n_timesteps: int,
@@ -117,3 +124,25 @@ def summarize(records: Sequence[RequestTelemetry]) -> Dict[str, float]:
         "total_dense_timesteps": sum(r.n_dense_timesteps for r in records),
         "total_skipped_windows": sum(r.n_skipped_windows for r in records),
     }
+
+
+def proportionality_r2(records: Sequence[RequestTelemetry]) -> float:
+    """R^2 of modeled energy vs measured events — the §IV-A3 claim.
+
+    Returns ``nan`` for degenerate inputs (fewer than 2 distinct points)
+    so a vacuous sample can never masquerade as a perfect fit in an
+    assertion or a report.
+    """
+    xs = [r.total_events for r in records]
+    ys = [r.sne_energy_j for r in records]
+    n = len(xs)
+    if n < 2 or len(set(xs)) < 2:
+        return float("nan")
+    mx = sum(xs) / n
+    my = sum(ys) / n
+    sxy = sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+    sxx = sum((x - mx) ** 2 for x in xs)
+    syy = sum((y - my) ** 2 for y in ys)
+    if sxx == 0 or syy == 0:
+        return float("nan")
+    return (sxy * sxy) / (sxx * syy)

@@ -6,6 +6,8 @@ Every comparison is exact (``np.array_equal``; -0.0 and +0.0 count
 equal, and the port keeps the reference's ``sign·max`` leak, so even the
 zeros' signs agree where the two compute the same expression).
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -227,3 +229,48 @@ def test_telemetry_and_hardware_model_match_jax():
         assert telemetry.summarize([a, a]) == jtele.summarize([b, b])
         assert engine.inference_time_s(cfg, 167.0, 3, [120.0, 40.0, 7.0]) \
             == jengine.inference_time_s(jcfg, 167.0, 3, [120.0, 40.0, 7.0])
+
+
+@pytest.mark.parametrize("cfg_kw", [{}, {"n_slices": 3, "freq_hz": 250e6},
+                                    {"cycles_per_boundary": 64}])
+def test_analytic_model_matches_jax(cfg_kw):
+    cfg, jcfg = engine.SneConfig(**cfg_kw), jengine.SneConfig(**cfg_kw)
+    assert (cfg.n_neurons, cfg.sops_per_cycle) == (jcfg.n_neurons,
+                                                   jcfg.sops_per_cycle)
+    for fn in ("peak_sops", "area_kge"):
+        assert getattr(engine, fn)(cfg) == getattr(jengine, fn)(jcfg), fn
+    for act in (0.012, 0.049, 0.2):
+        for fn in ("energy_per_sop_j", "efficiency_tsops_w"):
+            assert getattr(engine, fn)(cfg, act) == getattr(jengine, fn)(
+                jcfg, act), fn
+        assert engine.inference_energy_j(cfg, 5e4, act) == \
+            jengine.inference_energy_j(jcfg, 5e4, act)
+    assert engine.inference_rate_hz(cfg, 5e4) == jengine.inference_rate_hz(
+        jcfg, 5e4)
+    sizes = [("conv1", 32 * 32 * 2, 9 * 16), ("pool1", 40 * 40 * 16, 1),
+             ("fc1", 2048, 512)]
+    layers = engine.network_events_from_activity(sizes, 0.049, 100)
+    jlayers = jengine.network_events_from_activity(sizes, 0.049, 100)
+    assert [dataclasses.astuple(l) for l in layers] == [
+        dataclasses.astuple(l) for l in jlayers]
+    assert engine.summarize_inference(cfg, layers, 0.049) == \
+        jengine.summarize_inference(jcfg, jlayers, 0.049)
+    for n in (1, 1024, 1025, 8192):
+        assert engine.slices_required(n, cfg) == jengine.slices_required(
+            n, jcfg)
+    assert engine.SOA_TABLE == jengine.SOA_TABLE
+
+
+def test_proportionality_r2_matches_jax():
+    recs, jrecs = [], []
+    for i, ev in enumerate(([120.0, 40.0, 7.0], [300.0, 90.0, 11.0],
+                            [60.0, 10.0, 2.0], [90.0, 40.0, 9.0])):
+        kw = dict(uid=i, n_timesteps=16, n_windows=4, per_layer_events=ev,
+                  per_layer_sops=[e * 9 for e in ev], input_sites=700)
+        recs.append(telemetry.request_telemetry(engine.SneConfig(), **kw))
+        jrecs.append(jtele.request_telemetry(jengine.SneConfig(), **kw))
+    assert [r.sne_rate_hz for r in recs] == [r.sne_rate_hz for r in jrecs]
+    r2 = telemetry.proportionality_r2(recs)
+    assert r2 == jtele.proportionality_r2(jrecs) and 0.0 < r2 <= 1.0
+    assert np.isnan(telemetry.proportionality_r2(recs[:1]))
+    assert np.isnan(telemetry.proportionality_r2([recs[0], recs[0]]))

@@ -69,15 +69,6 @@ def _results(reqs):
     return out
 
 
-# counters the reference keeps and the port does not: SLO evictions (the
-# streaming runtime) are not ported yet
-_NOT_IN_PORT = ("evicted",)
-
-
-def _stats(jeng):
-    return {k: v for k, v in jeng.stats.items() if k not in _NOT_IN_PORT}
-
-
 def _assert_same(a, b):
     assert a.keys() == b.keys()
     for k in a:
@@ -165,7 +156,7 @@ def test_engine_matches_live_jax_engine(dtype_policy, idle_skip, fusion,
                                              idle_skip, (16, 96, 24),
                                              fusion, tile_sparsity)
     _assert_same(mine, ref)
-    assert eng.stats == _stats(jeng)
+    assert eng.stats == jeng.stats
     assert eng.padding_waste() == jeng.padding_waste()
     assert eng.inter_layer_drops() == jeng.inter_layer_drops()
     assert eng.stats["collector_dropped"] > 0
@@ -189,6 +180,6 @@ def test_full_width_slice_matches_jax(dtype_policy):
     (mine, eng), (ref, jeng) = _both_engines(spec, jspec, arrays,
                                              dtype_policy, recs, T, 2)
     _assert_same(mine, ref)
-    assert eng.stats == _stats(jeng)
+    assert eng.stats == jeng.stats
     # the Fig. 6 traffic is real: every layer consumed events
     assert (mine["per_layer_events"] > 0).all()
