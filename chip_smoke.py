@@ -61,7 +61,23 @@ non-zero):
    end-to-end latency (reported), and the burst of all 16 with an SLO of
    the closed loop's p50 end-to-end latency, which must evict and
    complete; every completed request bitwise equal to the oracle.  Launch counts are set to 0 before
-   each lowering's runtime runs and read after them.
+   each lowering's runtime runs and read after them;
+6. training on the card: one train-mode forward and backward of a B = 2
+   batch from dyadic weights on the card and on the CPU (every layer's
+   spikes bitwise, gradients within rtol 1e-4 plus 1e-6 of the layer's
+   largest); ``fit`` of the full-width Fig. 6 network, 6 steps of B = 8
+   with QAT and checkpoints every 3 steps (finite losses, conv/fc
+   weights moved, pool weights bitwise frozen); the step-6 checkpoint
+   deleted and the run resumed from step 3 (losses 3-5 and final weights
+   bitwise); a dispatch spy holds every operation of the B = 2 card step
+   and of the resumed steps to the card, and every convolution to
+   ``dense_math``'s scope (cuDNN off, TF32 off, deterministic); one more
+   step traced; ``evaluate`` on 16 held-out samples; the trained net,
+   ``quantize_net(per_channel=False)``, serving 8 of them on 8 slots
+   under every lowering and both dtype policies, class counts bitwise
+   equal across the six runs and to the card's ``dense_apply`` for
+   every request without drops (launch counts set to 0 before each
+   lowering's runs and read after them).
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -1212,10 +1228,7 @@ def phase_full_width(spec, qn, dev, smi: str) -> dict:
 
 def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
     """Serve the 4.9% cohort once more (f32 carrier, ``fusion``) under
-    ``torch.profiler``: the device-busy share of the traced wall time, the
-    device time by kernel name of the ten largest, and of each of the
-    port's kernels that ran, however small (the trace itself is too large
-    to keep)."""
+    ``torch.profiler``: see :func:`_device_summary`."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.policies import ExecutionPolicy
     reqs = _cohort(spec, COHORTS[1][1], 100, N_SLOTS, spec.n_timesteps)
@@ -1223,6 +1236,14 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         _, _, wall = serve(qn, reqs, ExecutionPolicy(fusion_policy=fusion),
                            N_SLOTS, dev)
+    return _device_summary(prof, wall, f"{fusion} cohort", smi)
+
+
+def _device_summary(prof, wall: float, what: str, smi: str) -> dict:
+    """From a profile over ``wall`` seconds: the device-busy share of the
+    traced wall time, the device kernels launched, the device time by
+    kernel name of the ten largest, and of each of the port's kernels
+    that ran, however small (the trace itself is too large to keep)."""
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")]
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1230,6 +1251,7 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
     out = {"wall_ms": 1e3 * wall, "device_kernel_ms": kernel_ms,
            "device_busy_share": kernel_ms / (1e3 * wall) if kernel_ms
            else None,
+           "device_kernel_launches": sum(e.count for e in kernels),
            "top_kernels": [{"name": e.key[:80], "calls": e.count,
                             "device_ms": e.self_device_time_total / 1e3}
                            for e in top],
@@ -1244,8 +1266,9 @@ def trace_cohort(spec, qn, dev, smi: str, fusion: str) -> dict:
     share = ("not measured (no device time in the trace)"
              if out["device_busy_share"] is None
              else f"{out['device_busy_share']:.2%}")
-    log(f"  traced {fusion} cohort: wall {out['wall_ms']:.1f} ms, device "
-        f"kernels {kernel_ms:.1f} ms, device busy {share} [{smi}]")
+    log(f"  traced {what}: wall {out['wall_ms']:.1f} ms, device kernels "
+        f"{kernel_ms:.1f} ms in {out['device_kernel_launches']} launches, "
+        f"device busy {share} [{smi}]")
     for k in out["top_kernels"]:
         log(f"    {k['device_ms']:9.2f} ms  {k['calls']:6d} calls  "
             f"{k['name']}")
@@ -1467,6 +1490,310 @@ def phase_streaming(spec, qn, dev, smi: str) -> dict:
     return {"runs": rows, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: surrogate-gradient training at full width, and serving its net
+# ---------------------------------------------------------------------------
+
+def _dense_spy():
+    """A dispatch mode that records, for every operation it sees (the
+    backward's included), the devices of its tensor arguments, the cuDNN
+    flags in force at each convolution and the float32 matmul precision
+    at each matmul."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    # the copies that move weights, checkpoints and read-backs between
+    # host and card, and views of their host ends; every other operation
+    # must take card tensors only
+    transfers = {"_to_copy", "copy_", "lift_fresh", "lift_fresh_copy",
+                 "_local_scalar_dense", "detach", "alias"}
+
+    class Spy(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.on_card, self.off_card = 0, set()
+            self.convs, self.matmuls = [], set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func)
+            op = name.split(".")[1] if "." in name else name
+            devs = {a.device.type for a in args
+                    if isinstance(a, torch.Tensor)}
+            if (kwargs or {}).get("device") is not None:
+                devs.add(torch.device(kwargs["device"]).type)
+            if op not in transfers:
+                if devs - {"cuda"}:
+                    self.off_card.add((name, tuple(sorted(devs))))
+                else:
+                    self.on_card += 1
+            if op.startswith("convolution"):
+                b = torch.backends.cudnn
+                self.convs.append((name, b.enabled, b.allow_tf32,
+                                   b.deterministic, b.benchmark))
+            elif op in ("mm", "addmm", "bmm", "matmul"):
+                self.matmuls.add(torch.get_float32_matmul_precision())
+            return func(*args, **(kwargs or {}))
+
+        def check(self, what: str) -> None:
+            """Fail unless every operation but a host transfer ran on the
+            card, every convolution inside ``dense_math``'s scope (cuDNN
+            off, TF32 off, deterministic, no autotuning) and every matmul
+            in float32."""
+            if self.off_card or self.on_card < 100:
+                raise AssertionError(
+                    f"{what}: {self.on_card} operations on the card; off "
+                    f"it: {sorted(self.off_card)[:5]}")
+            kinds = {c[0] for c in self.convs}
+            if not any("backward" in k for k in kinds):
+                raise AssertionError(f"{what}: no convolution backward seen "
+                                     f"({kinds})")
+            bad = [c for c in self.convs
+                   if c[1:] != (False, False, True, False)]
+            if bad:
+                raise AssertionError(
+                    f"{what}: convolutions outside the dense path's scope "
+                    f"(cuDNN off, no TF32, deterministic, no autotuning; "
+                    f"enabled, allow_tf32, deterministic, benchmark): "
+                    f"{bad[:3]}")
+            if self.matmuls != {"highest"}:
+                raise AssertionError(f"{what}: matmul precision "
+                                     f"{self.matmuls}")
+    return Spy()
+
+
+def _dyadic_net(spec, rng):
+    """Weights on a 2^-k grid (k from the fan-in, |code| <= 7, code 7 in
+    every layer), so every partial sum and every fake-quantised weight is
+    exact in float32 whatever the order of summation."""
+    import math
+    import numpy as np
+    out = []
+    for l in spec.layers:
+        if l.kind == "pool":
+            out.append(np.ones(l.weight_shape, np.float32))
+            continue
+        q = rng.integers(-7, 8, l.weight_shape)
+        q.reshape(-1)[0] = 7
+        k = max(3, math.ceil(math.log2(l.fan_in) / 2))
+        out.append((q * 2.0 ** -k).astype(np.float32))
+    return out
+
+
+def _card_against_cpu(spec, cfg, dev) -> dict:
+    """One train-mode forward and backward of a B = 2 batch from dyadic
+    weights, on the card (under the spy) and on the CPU: every layer's
+    spikes bitwise equal; gradients within rtol 1e-4 plus 1e-6 of the
+    layer's largest gradient (float32 sums of up to 2x10^5 terms in
+    other orders)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.econv import EConvParams, dense_math
+    from repro_torch.core.layer_program import (compile_program,
+                                                dense_program_forward)
+    from repro_torch.core.sne_net import ce_loss
+    from repro_torch.data.events_ds import DVS_GESTURE, batch_at
+    arrays = _dyadic_net(spec, np.random.default_rng(6))
+    x, lab = batch_at(cfg.seed, 0, 2, DVS_GESTURE, device=dev)
+    got = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [torch.from_numpy(a).to(d).requires_grad_() for a in arrays]
+        program, xd, ld = compile_program(spec, device=d), x.to(d), lab.to(d)
+        spy = _dense_spy()
+        with spy, dense_math():
+            out, acts = dense_program_forward(
+                program, [EConvParams(w=w) for w in leaves], xd, train=True,
+                qat=cfg.qat)
+            loss = ce_loss(out, ld).mean()
+            grads = torch.autograd.grad(loss, leaves)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            spy.check("card step")
+        got.append(([a.detach().cpu() for a in acts],
+                    [g.cpu() for g in grads], float(loss.detach())))
+    (ga, gg, gl), (ca, cg, cl) = got
+    for i, (a, b) in enumerate(zip(ga, ca)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"card vs CPU: layer {i} spikes differ")
+    worst, beyond = 0.0, 0
+    for i, (a, b) in enumerate(zip(gg, cg)):
+        err = (a - b).abs()
+        lim = 1e-4 * b.abs() + 1e-6 * float(b.abs().max())
+        if not bool((err <= lim).all()):
+            raise AssertionError(f"card vs CPU: layer {i} gradients differ "
+                                 f"(max abs err {float(err.max()):.3e})")
+        worst = max(worst, float(err.max() / b.abs().max().clamp(min=1e-30)))
+        beyond += int((err > 1e-4 * b.abs()).sum())
+    acts_mean = [float(a.mean()) for a in ga]
+    n_grads = sum(g.numel() for g in cg)
+    log(f"  card vs CPU, one step at B = 2 (dyadic weights): spikes bitwise "
+        f"(layer activity {[round(m, 4) for m in acts_mean]}), loss "
+        f"{gl!r} vs {cl!r}; largest gradient error {worst:.3e} of its "
+        f"layer's largest gradient, {beyond} of {n_grads} gradients beyond "
+        f"rtol 1e-4 alone; every op on the card, convolutions float32 and "
+        f"deterministic, cuDNN off")
+    return {"loss_card": gl, "loss_cpu": cl, "max_scaled_grad_err": worst,
+            "grads_beyond_rtol": beyond, "grads": n_grads,
+            "layer_activity": acts_mean}
+
+
+def _trace_train_step(spec, cfg, params, dev, smi: str) -> dict:
+    """One more train step (batch ``cfg.steps``, fresh optimizer state)
+    under ``torch.profiler``, after an untraced one: see
+    :func:`_device_summary`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.layer_program import compile_program
+    from repro_torch.data.events_ds import DVS_GESTURE, batch_at
+    from repro_torch.train.snn_loop import init_opt, make_train_step
+    step = make_train_step(compile_program(spec, device=dev), cfg)
+    x, lab = batch_at(cfg.seed, cfg.steps, cfg.batch, DVS_GESTURE,
+                      device=dev)
+    float(step(params, init_opt(params, cfg), x, lab)[2]["loss"])
+    opt = init_opt(params, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(params, opt, x, lab)[2]["loss"])
+        wall = time.perf_counter() - t0
+    return _device_summary(prof, wall, f"train step (B = {cfg.batch})",
+                           smi)
+
+
+def phase_training(dev, smi: str) -> dict:
+    """Train the full-width Fig. 6 net, resume it bitwise, evaluate it, and
+    serve its quantised net bitwise under every lowering."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.policies import ExecutionPolicy
+    from repro_torch.core.quant import quantize_net
+    from repro_torch.core.sne_net import (dense_apply, dvs_gesture_net,
+                                          init_snn, spike_counts)
+    from repro_torch.data.events_ds import DVS_GESTURE, batch_at
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.serve.event_engine import EventRequest
+    from repro_torch.train.snn_loop import TrainConfig, evaluate, fit
+    t0 = time.perf_counter()
+    spec = dvs_gesture_net()
+    cfg = TrainConfig(steps=6, batch=8, qat=True)
+    card_cpu = _card_against_cpu(spec, cfg, dev)
+
+    ckpt = tempfile.mkdtemp(prefix="sne_train_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = fit(spec, DVS_GESTURE, cfg, ckpt_dir=ckpt, ckpt_every=3,
+                    device=dev, log_fn=log)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        shutil.rmtree(os.path.join(ckpt, f"step_{cfg.steps:08d}"))
+        spy = _dense_spy()
+        with spy:
+            second = fit(spec, DVS_GESTURE, cfg, ckpt_dir=ckpt,
+                         ckpt_every=3, device=dev, log_fn=log)
+            torch.cuda.synchronize()
+        spy.check("resumed fit")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    losses = first.losses
+    if len(losses) != cfg.steps or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses {losses}")
+    init = init_snn(np.random.default_rng(cfg.seed), spec, device=dev)
+    for i, (p0, p1, l) in enumerate(zip(init, first.params, spec.layers)):
+        if p1.w.device != dev:
+            raise AssertionError(f"layer {i} trained on {p1.w.device}")
+        if torch.equal(p0.w, p1.w) != (l.kind == "pool"):
+            raise AssertionError(f"layer {i} ({l.kind}): pool weights must "
+                                 f"stay bitwise, conv/fc weights must move")
+    if second.start_step != 3 or not np.array_equal(second.losses,
+                                                    losses[3:]):
+        raise AssertionError(f"resume: start {second.start_step}, losses "
+                             f"{second.losses} vs {losses[3:]}")
+    for i, (a, b) in enumerate(zip(first.params, second.params)):
+        if not torch.equal(a.w, b.w):
+            raise AssertionError(f"resume: layer {i} weights differ")
+    step_ms = 1e3 * np.asarray(first.step_s)
+    p50 = float(np.percentile(step_ms[1:], 50))
+    n_in = [float(batch_at(cfg.seed, i, cfg.batch, DVS_GESTURE,
+                           device=dev)[0].sum()) for i in range(1, cfg.steps)]
+    events_per_s = sum(n_in) / (1e-3 * float(step_ms[1:].sum()))
+    log(f"  trained {cfg.steps} steps of B = {cfg.batch}, QAT: losses "
+        f"{losses.tolist()}; step ms {np.round(step_ms, 3).tolist()}; p50 of "
+        f"steps 2-{cfg.steps} {p50:.3f} ms, {cfg.batch / p50 * 1e3:.3f} "
+        f"samples/s, {events_per_s:.0f} input events/s trained; peak device "
+        f"memory {peak / 2**20:.1f} MiB [{smi}]")
+    log(f"  resumed from step 3: losses {second.losses.tolist()} and final "
+        f"weights bitwise the uninterrupted run's; every op of the resumed "
+        f"steps on the card, convolutions float32 and deterministic, cuDNN "
+        f"off")
+
+    trace = _trace_train_step(spec, cfg, first.params, dev, smi)
+
+    x, _ = batch_at(1, 10 ** 6, 16, DVS_GESTURE, device=dev)
+    acc = evaluate(spec, first.params, DVS_GESTURE, n=16, qat=True,
+                   device=dev)
+    log(f"  evaluate on 16 held-out samples: accuracy {acc:.4f} (chance "
+        f"{1 / spec.n_classes:.4f}; 6 steps)")
+
+    qn = quantize_net(first.params, spec, per_channel=False)
+    xs = x[:8]
+    with torch.no_grad():
+        want = spike_counts(dense_apply(qn.params_for("f32-carrier"),
+                                        qn.spec, xs)[0]).cpu().numpy()
+    runs, launches = {}, {}
+    for fusion in LOWERINGS:
+        reset_launch_counts()
+        for dp in ("f32-carrier", "int8-native"):
+            reqs = [EventRequest.from_dense(i, xs[i].cpu())
+                    for i in range(len(xs))]
+            reqs, _, wall = serve(qn, reqs, ExecutionPolicy(
+                dtype_policy=dp, fusion_policy=fusion), N_SLOTS, dev)
+            runs[(fusion, dp)] = results(reqs)
+            log(f"  served the trained net, {fusion} {dp}: {len(reqs)} "
+                f"requests in {wall:.3f} s")
+        torch.cuda.synchronize()
+        launches[fusion] = dict(LAUNCHES)
+    missing = [k for k in LAUNCHES if PATH_OF[k]
+               and launches[PATH_OF[k]][k] == 0]
+    if missing:
+        raise AssertionError(f"phase 6: kernels never launched on their "
+                             f"path: {missing}")
+    oracle = runs[("per-step", "f32-carrier")]
+    for key, res in runs.items():
+        assert_same(res, oracle, f"trained net {key} vs per-step f32")
+    counts = oracle["class_counts"]
+    clean = [i for i in range(len(xs))
+             if oracle["input_dropped"][i] == 0
+             and not oracle["inter_layer_dropped"][i].any()]
+    if not clean:
+        raise AssertionError("every request of the trained net dropped "
+                             "events: nothing to hold against the dense "
+                             "forward")
+    for i in clean:
+        if not np.array_equal(counts[i].astype(np.float64),
+                              want[i].astype(np.float64)):
+            raise AssertionError(f"request {i}: served {counts[i]} vs the "
+                                 f"card's dense forward {want[i]}")
+    log(f"  the trained net's class counts agree bitwise across the three "
+        f"lowerings and both dtype policies; {len(clean)} of {len(xs)} "
+        f"requests had no drop and equal the card's dense forward; "
+        f"{len(xs) - len(clean)} requests had drops; launches per lowering "
+        f"{launches}")
+    wall = time.perf_counter() - t0
+    log(f"  phase 6 wall {wall:.1f} s (kernels already built) [{smi}]")
+    return {"steps": cfg.steps, "batch": cfg.batch, "qat": cfg.qat,
+            "losses": losses.tolist(), "step_ms": step_ms.tolist(),
+            "p50_step_ms": p50, "samples_per_s": cfg.batch / p50 * 1e3,
+            "input_events_per_s": events_per_s,
+            "peak_device_memory_bytes": peak, "eval_accuracy": acc,
+            "served_requests": len(xs), "requests_with_drops":
+                len(xs) - len(clean), "launches": launches,
+            "card_vs_cpu": card_cpu, "trace": trace, "wall_s": wall,
+            "card": smi}
+
+
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
     the window kernels and the megakernel with the sparse bitmaps the main
@@ -1552,6 +1879,10 @@ def main() -> int:
     log("phase 5: the streaming runtime on the full-width Fig. 6 network")
     streaming = phase_streaming(spec, qn, dev, smi)
 
+    log("phase 6: surrogate-gradient training of the full-width Fig. 6 "
+        "network, resumed, evaluated and served")
+    training = phase_training(dev, smi)
+
     # a kernel of no serving path reports its count summed over every
     # lowering's run (phase 4 holds it at 0)
     launches = {k: main_path["launches"][PATH_OF[k]][k] if PATH_OF[k]
@@ -1564,13 +1895,14 @@ def main() -> int:
                "peak_device_memory_bytes":
                    main_path["peak_device_memory_bytes"],
                "trace": main_path["trace"], "streaming": streaming,
+               "training": training,
                "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, **summary}, f, indent=1)
     log(json.dumps({k: v for k, v in summary.items()
-                    if k not in ("trace", "streaming")}))
+                    if k not in ("trace", "streaming", "training")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

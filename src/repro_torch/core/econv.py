@@ -1,18 +1,20 @@
 """Event-based convolution layer specs (paper §III-C, Listing 1).
 
-Counterpart of the spec half of ``repro.core.econv``: the static layer
-description, its parameters and the halo rule.  The event path itself runs
-through `core.layer_program`; the dense (frame-based) path is not ported
-in this slice.
+Counterpart of ``repro.core.econv``: the static layer description, its
+parameters, the halo rule and the dense (frame-based) path that training
+differentiates through (:func:`dense_syn_current`, :func:`dense_forward`).
+The event path runs through `core.layer_program`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.lif import LifParams
+from repro_torch.core.lif import LifParams, lif_rollout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +89,72 @@ class EConvParams(NamedTuple):
 def _halo(spec: EConvSpec) -> int:
     """THE halo rule: conv scatters need K-1 address-filter headroom."""
     return spec.kernel - 1 if spec.kind == "conv" else 0
+
+
+# ---------------------------------------------------------------------------
+# Dense (frame-based) path — what training differentiates through.
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def dense_math():
+    """Scope the dense path's numerics so that a step on the card computes
+    the reference's float32 function and repeats bitwise: cuDNN off (its
+    FFT and Winograd convolutions round differently from a direct sum, so
+    an integer-domain or dyadic net's membranes would no longer be exact;
+    PyTorch's own CUDA convolution is an im2col and a float32 GEMM), its
+    TF32 off, deterministic algorithms, no autotuning.  The forward and
+    the backward of a step both run inside it.  Matmuls must already be
+    float32 (``torch.get_float32_matmul_precision() == "highest"``,
+    PyTorch's default); anything else raises.  Nothing global changes
+    outside the scope."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "the dense path computes float32 matmuls; float32 matmul "
+            f"precision is {torch.get_float32_matmul_precision()!r} — set "
+            "it back to 'highest'")
+    with torch.backends.cudnn.flags(enabled=False, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        yield
+
+
+def dense_syn_current(params: EConvParams, spec: EConvSpec,
+                      s: torch.Tensor) -> torch.Tensor:
+    """Synaptic input of dense spike frames ``(..., H, W, C)`` ->
+    ``(..., Ho, Wo, Co)``, every leading frame at once.
+
+    Weights stay in the reference layouts; the permutes to ``conv2d``'s
+    OIHW / NCHW happen here, under autograd.  The fc flattens each frame
+    row-major over ``(H, W, C)`` (``Din = (x·W + y)·C + c``), the order
+    the event fc kernels index.
+    """
+    H, W, C = spec.in_shape
+    Ho, Wo, Co = spec.out_shape
+    lead = s.shape[:-3]
+    x = s.reshape((-1, H, W, C))
+    if spec.kind == "conv":
+        out = F.conv2d(x.permute(0, 3, 1, 2), params.w.permute(3, 2, 0, 1),
+                       padding=spec.padding).permute(0, 2, 3, 1)
+    elif spec.kind == "pool":
+        k = spec.stride
+        out = x[:, :Ho * k, :Wo * k].reshape((-1, Ho, k, Wo, k, C)).sum(
+            (2, 4)) * params.w
+    else:
+        out = x.reshape((-1, H * W * C)) @ params.w
+    return out.reshape(lead + (Ho, Wo, Co))
+
+
+def dense_forward(params: EConvParams, spec: EConvSpec, spikes: torch.Tensor,
+                  train: bool = False):
+    """Run the dense path over ``(..., T, H, W, C)`` (leading batch axes
+    optional); returns ``(spikes_out (..., T, Ho, Wo, Co), v_fin)``.
+
+    A layer's synaptic input depends only on the previous layer's spikes,
+    so it is computed for every frame in one call; only the LIF recurrence
+    loops over time.
+    """
+    with dense_math():
+        syn = dense_syn_current(params, spec, spikes)
+        v0 = syn.new_zeros(syn.shape[:-4] + syn.shape[-3:])
+        v_fin, out = lif_rollout(v0, syn, spec.lif, train,
+                                 time_dim=syn.dim() - 4)
+    return out, v_fin

@@ -68,3 +68,16 @@ def capacity_for(shape: Tuple[int, int, int, int], act: float,
     n = int(shape[0] * shape[1] * shape[2] * shape[3] * act * slack)
     n = max(n, align)
     return ((n + align - 1) // align) * align
+
+
+def events_to_dense(stream: EventStream, shape: Tuple[int, int, int, int],
+                    binary: bool = True) -> torch.Tensor:
+    """Scatter an EventStream back into a dense float32 ``(T, H, W, C)``
+    tensor on the stream's device; padding and non-UPDATE slots add 0."""
+    T, H, W, C = shape
+    dense = torch.zeros(shape, dtype=torch.float32, device=stream.t.device)
+    ones = (stream.valid & (stream.op == OP_UPDATE)).to(torch.float32)
+    idx = tuple(torch.clamp(a, 0, n - 1).long() for a, n in
+                zip((stream.t, stream.x, stream.y, stream.c), shape))
+    dense.index_put_(idx, ones, accumulate=True)
+    return torch.clamp(dense, max=1.0) if binary else dense

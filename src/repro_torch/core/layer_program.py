@@ -27,7 +27,8 @@ resident slabs, int32 accumulation) — bitwise the same results on an
 integer-domain net.
 
 The step runs eagerly (the reference jits it); it builds new state
-tensors and never updates its inputs in place.
+tensors and never updates its inputs in place.  :func:`dense_program_forward`
+is the dense, differentiable twin of the same op chain that training runs.
 """
 from __future__ import annotations
 
@@ -40,14 +41,15 @@ from typing import (TYPE_CHECKING, Iterator, NamedTuple, Optional,
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.core.econv import EConvParams, EConvSpec, _halo
+from repro_torch.core.econv import (EConvParams, EConvSpec, _halo,
+                                    dense_forward)
 from repro_torch.core.lif import (LifParams, apply_leak, fire_and_reset,
                                   idle_decay, supports_idle_skip)
 from repro_torch.core.policies import (DTYPE_POLICIES, F32_CARRIER,
                                        FUSED_NETWORK, FUSED_WINDOW,
                                        FUSION_POLICIES, INT8_NATIVE,
                                        PER_STEP, ExecutionPolicy)
-from repro_torch.core.quant import INT8_MAX, INT8_MIN
+from repro_torch.core.quant import INT8_MAX, INT8_MIN, fake_quant_weights
 from repro_torch.device import resolve_device
 from repro_torch.kernels.event_conv.ops import (event_conv_batched,
                                                 event_conv_window)
@@ -726,3 +728,39 @@ def window_step(params: Sequence[EConvParams], states, class_counts,
         # class counts stay float32 under every policy (exact integer sums)
         class_counts = class_counts + s.sum(dim=(1, 2)).to(torch.float32)
     return tuple(states), class_counts, counts, drops
+
+
+# ---------------------------------------------------------------------------
+# Dense differentiable forward — the training twin of the event executors.
+# ---------------------------------------------------------------------------
+
+def dense_program_forward(program: LayerProgram,
+                          params: Sequence[EConvParams],
+                          spikes: torch.Tensor, train: bool = False,
+                          qat: bool = False):
+    """Differentiable dense-frame forward over the compiled op chain.
+
+    ``program.ops`` in order, each op's spec and LIF plan, on dense
+    ``(..., T, H, W, C)`` frames through `core.econv.dense_forward`: the
+    ``leak -> integrate -> clip -> fire -> reset`` arithmetic the event
+    executors run.  ``train=True`` fires through the surrogate-gradient
+    `core.lif.spike_fn` (same forward values).  ``qat=True`` fake-quantises
+    conv/fc weights onto the layer-shared int4 grid `core.quant.quantize_net`
+    lowers onto.  Only the float-carrier program trains.  Returns
+    ``(out_spikes, acts)`` like `core.sne_net.dense_apply`.
+    """
+    if program.dtype_policy != F32_CARRIER:
+        raise ValueError(
+            f"dense_program_forward trains the {F32_CARRIER!r} datapath; "
+            f"got a {program.dtype_policy!r} program — train in the "
+            f"carrier domain and lower with core.quant.quantize_net")
+    if len(params) != len(program.ops):
+        raise ValueError("need one params entry per compiled op")
+    x = spikes
+    acts = []
+    for op, p in zip(program.ops, params):
+        if qat and op.kind != "pool":
+            p = EConvParams(w=fake_quant_weights(p.w, per_channel=False))
+        x, _ = dense_forward(p, op.spec, x, train=train)
+        acts.append(x)
+    return x, acts

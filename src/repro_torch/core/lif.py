@@ -7,6 +7,11 @@ in ``v.dtype`` (the float32 carrier or a native int32 accumulator), and
 integer callers hold integral leak / threshold (`core.quant` lowers them
 so).  The arithmetic is operation for operation the reference's, so float
 results are bitwise equal.
+
+The dense training path adds :func:`spike_fn` (the Heaviside fire with a
+fast-sigmoid surrogate gradient), :func:`lif_step` and :func:`lif_rollout`;
+their gradients follow the reference's ``jax.grad`` conventions, ties
+included (see :func:`lif_step`).
 """
 from __future__ import annotations
 
@@ -61,6 +66,81 @@ def apply_leak(v: torch.Tensor, leak, dt: Union[int, float, torch.Tensor],
     if mode == "subtract":
         return v - step
     raise ValueError(f"unknown leak mode {mode!r}")
+
+
+class _SpikeFn(torch.autograd.Function):
+    """Heaviside forward, fast-sigmoid surrogate backward."""
+
+    @staticmethod
+    def forward(ctx, v, threshold: float, beta: float):
+        ctx.save_for_backward(v)
+        ctx.threshold, ctx.beta = threshold, beta
+        return (v >= threshold).to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        x = torch.abs(v - ctx.threshold) * ctx.beta
+        # a tensor numerator: ``float / tensor`` is reciprocal-then-multiply
+        # in torch, two roundings where the reference has one
+        surr = _scalar(ctx.beta, x) / (2.0 * (1.0 + x) ** 2)
+        return g * surr, None, None
+
+
+def spike_fn(v: torch.Tensor, threshold: float, beta: float = 10.0
+             ) -> torch.Tensor:
+    """Heaviside firing rule with a fast-sigmoid surrogate gradient.
+
+    Forward: ``(v >= threshold)`` in ``v.dtype``.  Backward: ``g · β /
+    (2(1 + β|v − th|)²)``, the reference's custom VJP; threshold and β are
+    plain numbers and get no gradient.
+    """
+    return _SpikeFn.apply(v, threshold, beta)
+
+
+def _clip(v: torch.Tensor, c: float) -> torch.Tensor:
+    """``jnp.clip(v, -c, c)`` as min(max(·)): a value on a bound passes
+    half its gradient, as JAX's does (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(v, _scalar(-c, v)), _scalar(c, v))
+
+
+def lif_step(v: torch.Tensor, syn_in: torch.Tensor, p: LifParams,
+             train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dense LIF timestep: leak -> integrate -> clip -> fire -> reset.
+
+    Returns ``(v_next, spikes)``.  ``train=True`` routes the threshold
+    through :func:`spike_fn`; the reset ``v·(1 − s)`` keeps the gradient
+    through ``s`` as the reference does.  Ties split their gradient as
+    ``jax.grad`` does: ``torch.maximum`` in the leak and :func:`_clip`;
+    ``|v|``'s derivative at 0 differs (torch 0, JAX 1) but is multiplied
+    by ``sign(0) = 0``.
+    """
+    v = apply_leak(v, p.leak, 1, p.leak_mode)
+    v = v + syn_in
+    if p.state_clip is not None:
+        v = _clip(v, p.state_clip)
+    if train:
+        s = spike_fn(v, p.threshold, p.surrogate_beta)
+    else:
+        s = (v >= p.threshold).to(v.dtype)
+    if p.reset_mode == "zero":
+        v = v * (1.0 - s)
+    else:
+        v = v - s * p.threshold
+    return v, s
+
+
+def lif_rollout(v0: torch.Tensor, syn_in: torch.Tensor, p: LifParams,
+                train: bool = False, time_dim: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lif_step` over the ``time_dim`` axis of ``syn_in`` (the
+    reference's ``lax.scan``; axis 0 there).  Returns ``(v_final,
+    spikes)`` with the spikes stacked on ``time_dim``."""
+    v, out = v0, []
+    for x in syn_in.unbind(time_dim):
+        v, s = lif_step(v, x, p, train)
+        out.append(s)
+    return v, torch.stack(out, time_dim)
 
 
 def fire_and_reset(v: torch.Tensor, p: LifParams

@@ -1,12 +1,13 @@
 """Quantisation for SNE deployment (paper §III-D4: 4-bit weights, 8-bit state).
 
-Counterpart of the deployment half of ``repro.core.quant``:
-:func:`quantize_net` lowers a float network to one integer-domain model
-(:class:`QuantizedNet`) that serves both dtype policies, with the same
-arithmetic as the reference (float32 scales, round-half-to-even, int4
-clip), so codes, scales and the integer LIF plan are bitwise equal.  The
-QAT fake-quant path (straight-through rounding) belongs to the training
-slice and is not ported yet.
+Counterpart of ``repro.core.quant``: :func:`quantize_net` lowers a float
+network to one integer-domain model (:class:`QuantizedNet`) that serves
+both dtype policies, with the same arithmetic as the reference (float32
+scales, round-half-to-even, int4 clip), so codes, scales and the integer
+LIF plan are bitwise equal.  The QAT view (:func:`fake_quant_weights`,
+:func:`fake_quant_net`) quantises and dequantises under autograd with
+straight-through rounding; on the layer-shared grid it equals
+:meth:`QuantizedNet.dequantized_params` bitwise.
 """
 from __future__ import annotations
 
@@ -25,6 +26,22 @@ INT4_MIN, INT4_MAX = -8, 7
 INT8_MIN, INT8_MAX = -128, 127
 
 
+class _SteRound(torch.autograd.Function):
+    """Round half to even; the gradient passes straight through."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _ste_round(x: torch.Tensor) -> torch.Tensor:
+    return _SteRound.apply(x)
+
+
 def weight_scale(w: torch.Tensor, per_channel: bool = True) -> torch.Tensor:
     """Symmetric float32 scale mapping the weight range onto int4.
 
@@ -36,7 +53,38 @@ def weight_scale(w: torch.Tensor, per_channel: bool = True) -> torch.Tensor:
         amax = w.abs().amax(dim=axes, keepdim=True) if axes else w.abs()
     else:
         amax = w.abs().max()
-    return torch.clamp(amax, min=1e-8) / INT4_MAX
+    # torch.maximum, not clamp: a tie passes half its gradient, as in JAX;
+    # a tensor divisor: on the card, dividing by a Python number multiplies
+    # by its float32 reciprocal, one more rounding than the reference
+    return (torch.maximum(amax, torch.full_like(amax, 1e-8))
+            / torch.full_like(amax, INT4_MAX))
+
+
+def fake_quant_weights(w: torch.Tensor, per_channel: bool = True
+                       ) -> torch.Tensor:
+    """QAT: quantise-dequantise with STE gradients (4-bit symmetric).
+
+    The clip is ``min(max(·))``, not ``torch.clamp``: the largest weight
+    of a layer maps exactly onto code 7, and there ``jax.grad`` of the
+    reference's ``jnp.clip`` passes half the gradient, as this does.
+    """
+    s = weight_scale(w, per_channel)
+    q = _ste_round(w / s)
+    q = torch.minimum(torch.maximum(q, torch.full_like(q, INT4_MIN)),
+                      torch.full_like(q, INT4_MAX))
+    return q * s
+
+
+def fake_quant_net(params: Sequence[EConvParams], spec: "SNNSpec",
+                   per_channel: bool = False) -> List[EConvParams]:
+    """QAT view of a whole network on the int4 deployment grid: conv/fc
+    weights fake-quantised (:func:`fake_quant_weights`), pool layers
+    untouched.  With the default layer-shared grid it equals
+    ``quantize_net(params, spec, per_channel=False).dequantized_params()``
+    bitwise."""
+    return [p if l.kind == "pool"
+            else EConvParams(w=fake_quant_weights(p.w, per_channel))
+            for p, l in zip(params, spec.layers)]
 
 
 def quantize_weights_int(w: torch.Tensor, per_channel: bool = True
@@ -104,6 +152,12 @@ class QuantizedNet:
             return [EConvParams(w=c.to(torch.float32)) for c in self.codes]
         raise ValueError(f"unknown dtype policy {dtype_policy!r} "
                          f"(expected one of {DTYPE_POLICIES})")
+
+    def dequantized_params(self) -> List[EConvParams]:
+        """Float reconstruction of the executed model: codes on the
+        layer-shared grid times that grid's scale."""
+        return [EConvParams(w=c.to(torch.float32) * s)
+                for c, s in zip(self.codes, self.shared_scales)]
 
     def unpacked_codes(self) -> List[torch.Tensor]:
         """Codes recovered from the packed image (must equal ``codes``)."""

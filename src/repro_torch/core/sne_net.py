@@ -1,7 +1,9 @@
 """eCNN network assembly — the paper's Fig. 6 topology and friends.
 
-Counterpart of ``repro.core.sne_net`` (specs and initialisation).  The
-Fig. 6 network:
+Counterpart of ``repro.core.sne_net``: specs, initialisation and the
+dense execution that training runs (:func:`dense_apply`, rate decoding
+and the two losses).  Batch is a leading axis where the reference maps
+one sample at a time.  The Fig. 6 network:
 
     128x128x2 -> sum-pool 4 -> conv 16c5(p2) -> pool 2 -> conv 32c3(p1)
               -> pool 2 -> FC 512 -> FC 11
@@ -12,13 +14,14 @@ so whatever must agree across the two packages crosses as numpy arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.econv import EConvParams, EConvSpec
+from repro_torch.core.econv import EConvParams, EConvSpec, dense_forward
 from repro_torch.core.lif import LifParams
+from repro_torch.core.quant import fake_quant_weights
 from repro_torch.device import resolve_device
 
 
@@ -102,3 +105,53 @@ def init_snn(rng: np.random.Generator, spec: SNNSpec,
     dev = resolve_device(device)
     return [EConvParams(w=torch.from_numpy(init_econv_numpy(rng, l)).to(dev))
             for l in spec.layers]
+
+
+# ---------------------------------------------------------------------------
+# Dense execution (training path)
+# ---------------------------------------------------------------------------
+
+def dense_apply(params: Sequence[EConvParams], spec: SNNSpec,
+                spikes: torch.Tensor, train: bool = False,
+                qat: bool = False):
+    """Forward ``(..., T, H, W, C)`` through all layers; returns
+    ``(out_spikes, per-layer spikes)``.  ``qat`` fake-quantises conv/fc
+    weights per output channel, as the reference's ``dense_apply`` does."""
+    acts = []
+    x = spikes
+    for p, l in zip(params, spec.layers):
+        if qat and l.kind != "pool":
+            p = EConvParams(w=fake_quant_weights(p.w))
+        x, _ = dense_forward(p, l, x, train=train)
+        acts.append(x)
+    return x, acts
+
+
+def spike_counts(out_spikes: torch.Tensor) -> torch.Tensor:
+    """Rate decoding: output spikes per class, summed over the time axis
+    of ``(..., T, Ho, Wo, Co)`` -> ``(..., Ho·Wo·Co)``."""
+    return out_spikes.sum(-4).flatten(-3)
+
+
+def count_loss(out_spikes: torch.Tensor, label: torch.Tensor, spec: SNNSpec,
+               true_rate: float = 0.5, false_rate: float = 0.02
+               ) -> torch.Tensor:
+    """SLAYER-style spike-count target loss, one value per sample."""
+    counts = spike_counts(out_spikes)
+    target = torch.full_like(counts, false_rate * spec.n_timesteps)
+    target = target.scatter(-1, label.long()[..., None],
+                            true_rate * spec.n_timesteps)
+    return ((counts - target) ** 2).mean(-1)
+
+
+def ce_loss(out_spikes: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy over rate-decoded spike counts, one value per
+    sample."""
+    logp = torch.log_softmax(spike_counts(out_spikes), -1)
+    return -logp.gather(-1, label.long()[..., None])[..., 0]
+
+
+def predict(out_spikes: torch.Tensor) -> torch.Tensor:
+    """Rate decoding: the class with the most output spikes (the first on
+    a tie, as ``jnp.argmax``)."""
+    return torch.argmax(spike_counts(out_spikes), -1)

@@ -1,32 +1,154 @@
-"""Real DVS recording ingestion for the serving engine.
+"""Event-stream datasets: the synthetic training stream and real DVS
+recording I/O.
 
-Counterpart of the recording half of ``repro.data.events_ds``: a
-:class:`DVSRecording` of raw microsecond-timestamped address events,
-loaders for the portable ``.npz`` format and AEDAT3.1 (the DVS-Gesture
-release format), binning into the engine's ``EventStream``
-(:func:`recording_to_stream`), segmentation into requests
-(:func:`segment_recording`), the numpy-only synthetic recording
-(:func:`synthesize_recording`) and the paced replay of segments into an
-engine (:class:`ReplayClient`).  All host-side numpy; streams are CPU
-tensors, which the engine's collector reads as numpy.
+Counterpart of ``repro.data.events_ds``, in two halves:
+
+1. the synthetic generator with DVS-Gesture / NMNIST statistics
+   (:class:`EventDatasetSpec`, :func:`batch_at`): class-anchored Gaussian
+   blobs orbiting at class-specific speeds, Bernoulli spikes at the
+   paper's 1.2%-4.9% activity.  It draws from a ``torch.Generator`` on the
+   target device, seeded by a pure function of ``(seed, index)``, so the
+   data cursor is the step index; JAX's PRNG is not matched, only the
+   body that turns the draws into spikes (:func:`_sample_one`);
+2. recording ingestion for serving and training: a :class:`DVSRecording`
+   of raw microsecond-timestamped address events, loaders for the portable
+   ``.npz`` format and AEDAT3.1 (the DVS-Gesture release format), binning
+   into the engine's ``EventStream`` (:func:`recording_to_stream`),
+   segmentation into requests (:func:`segment_recording`) or dense
+   training windows (:func:`recording_dense_windows`), the numpy-only
+   synthetic recording (:func:`synthesize_recording`) and the paced
+   replay of segments into an engine (:class:`ReplayClient`).  Host-side
+   numpy; streams are CPU tensors, which the engine's collector reads as
+   numpy.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import pathlib
 import struct
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import events as ev
+from repro_torch.device import resolve_device
 
 # the sample recordings and checkpoint ship with the reference package
 SAMPLES_DIR = (pathlib.Path(__file__).resolve().parents[2] / "repro" / "data"
                / "samples")
+
+
+@dataclasses.dataclass(frozen=True)
+class EventDatasetSpec:
+    """Geometry and statistics of one synthetic event dataset."""
+
+    n_classes: int = 11
+    height: int = 128
+    width: int = 128
+    polarities: int = 2
+    n_timesteps: int = 100
+    base_activity: float = 0.02   # mean fraction of active pixels per step
+    n_blobs: int = 3
+
+
+DVS_GESTURE = EventDatasetSpec()
+NMNIST = EventDatasetSpec(n_classes=10, height=34, width=34, n_timesteps=60,
+                          base_activity=0.03, n_blobs=2)
+TINY = EventDatasetSpec(n_classes=4, height=12, width=12, n_timesteps=16,
+                        base_activity=0.06, n_blobs=1)
+
+
+def _sample_one(labels: torch.Tensor, phase_u: torch.Tensor,
+                act_u: torch.Tensor, u: torch.Tensor,
+                spec: EventDatasetSpec) -> torch.Tensor:
+    """The reference's class-anchored body with its random draws passed
+    in, batched: ``labels (B,)``, ``phase_u (B, n_blobs)`` uniform in
+    [0, 1), ``act_u (B,)`` uniform in [0.6, 2.4), ``u (B, T, H, W, C)``
+    uniform in [0, 1) -> float32 binary spikes ``(B, T, H, W, C)``."""
+    T, H, W, C = (spec.n_timesteps, spec.height, spec.width, spec.polarities)
+    dev = u.device
+    f32 = torch.float32
+    lab = labels.to(f32)[:, None, None]                      # (B, 1, 1)
+    b = torch.arange(spec.n_blobs, dtype=f32, device=dev)    # (nb,)
+    omega = 0.05 + 0.035 * lab + 0.02 * b                    # (B, 1, nb)
+    radius = (0.14 + 0.03 * b + 0.01 * lab) * min(H, W)
+    phase0 = phase_u[:, None] * 2 * math.pi + lab * 0.7
+    act = spec.base_activity * act_u                         # (B,)
+    t = torch.arange(T, dtype=f32, device=dev)[:, None]      # (T, 1)
+    ang = omega * t + phase0                                 # (B, T, nb)
+    theta = 2.0 * math.pi * lab / spec.n_classes
+    cy0 = H * (0.5 + 0.22 * torch.sin(theta))
+    cx0 = W * (0.5 + 0.22 * torch.cos(theta))
+    cy = cy0 + radius * torch.sin(ang)
+    cx = cx0 + radius * torch.cos(ang)
+    pol_bias = 0.5 + 0.5 * torch.sin(ang + 0.5)              # (B, T, nb)
+    yy = torch.arange(H, dtype=f32, device=dev)[:, None]
+    xx = torch.arange(W, dtype=f32, device=dev)[None, :]
+    sig2 = (0.06 * min(H, W)) ** 2
+    d2 = ((yy - cy[..., None, None]) ** 2
+          + (xx - cx[..., None, None]) ** 2)                 # (B,T,nb,H,W)
+    inten = torch.exp(-d2 / (2 * sig2))
+    p_on = (inten * pol_bias[..., None, None]).amax(2)
+    p_off = (inten * (1 - pol_bias)[..., None, None]).amax(2)
+    inten = torch.stack([p_on, p_off], -1)                   # (B,T,H,W,2)
+    scale = (act[:, None, None, None, None] * H * W * C
+             / torch.clamp(inten.sum((2, 3, 4), keepdim=True), min=1e-6)
+             * T)
+    prob = torch.clamp(inten * scale / T, 0.0, 0.75)
+    return (u < prob).to(f32)
+
+
+def _draws(gen: torch.Generator, n: int, spec: EventDatasetSpec):
+    """The random inputs of ``n`` samples, drawn from ``gen`` on its
+    device: labels, blob phases, activity factors, Bernoulli uniforms."""
+    dev = gen.device
+    labels = torch.randint(0, spec.n_classes, (n,), generator=gen,
+                           device=dev)
+    phase_u = torch.rand((n, spec.n_blobs), generator=gen, device=dev)
+    act_u = torch.rand((n,), generator=gen, device=dev) * 1.8 + 0.6
+    u = torch.rand((n, spec.n_timesteps, spec.height, spec.width,
+                    spec.polarities), generator=gen, device=dev)
+    return labels, phase_u, act_u, u
+
+
+def sample(gen: torch.Generator, spec: EventDatasetSpec
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``(spikes (T, H, W, C), label)`` pair on ``gen``'s device."""
+    labels, phase_u, act_u, u = _draws(gen, 1, spec)
+    return _sample_one(labels, phase_u, act_u, u, spec)[0], labels[0]
+
+
+def _cursor_generator(seed: int, index: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded by a pure function of
+    ``(seed, index)``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([seed, index])
+                        .generate_state(1, np.uint64)[0]))
+    return gen
+
+
+def batch_at(seed: int, index: int, batch_size: int, spec: EventDatasetSpec,
+             device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch ``index`` of the stream: ``(spikes (B, T, H, W, C) float32,
+    labels (B,) int64)`` made on ``device`` (default: CUDA), a pure
+    function of ``(seed, index)`` on that device, which is what makes the
+    data pipeline checkpointable by cursor alone."""
+    gen = _cursor_generator(seed, index, resolve_device(device))
+    labels, phase_u, act_u, u = _draws(gen, batch_size, spec)
+    return _sample_one(labels, phase_u, act_u, u, spec), labels
+
+
+def batches(seed: int, batch_size: int, spec: EventDatasetSpec, device=None
+            ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Deterministic, restartable batch stream (cursor = batch index)."""
+    i = 0
+    while True:
+        yield batch_at(seed, i, batch_size, spec, device)
+        i += 1
 
 
 @dataclasses.dataclass
@@ -223,6 +345,17 @@ def segment_recording(rec: DVSRecording, in_shape: Tuple[int, int, int],
     """Chop a continuous recording into per-inference ``EventRequest``s of
     ``n_timesteps`` bins of ``window_us`` each, in arrival order."""
     from repro_torch.serve.event_engine import EventRequest  # data<->serve
+    return [EventRequest(uid=uid_base + i, stream=stream,
+                         n_timesteps=n_timesteps)
+            for i, stream in enumerate(_segment_streams(
+                rec, in_shape, n_timesteps, window_us))]
+
+
+def _segment_streams(rec: DVSRecording, in_shape: Tuple[int, int, int],
+                     n_timesteps: int, window_us: int
+                     ) -> List[ev.EventStream]:
+    """Every ``n_timesteps * window_us`` segment of ``rec`` binned by
+    :func:`recording_to_stream`, in order."""
     seg_us = n_timesteps * window_us
     n_seg = max(1, -(-rec.duration_us // seg_us))
     t0 = int(rec.t[0]) if rec.n_events else 0
@@ -236,9 +369,24 @@ def segment_recording(rec: DVSRecording, in_shape: Tuple[int, int, int],
         stream, _ = recording_to_stream(
             seg, in_shape, n_timesteps, window_us=window_us,
             t0_us=t0 + i * seg_us)
-        out.append(EventRequest(uid=uid_base + i, stream=stream,
-                                n_timesteps=n_timesteps))
+        out.append(stream)
     return out
+
+
+def recording_dense_windows(rec: DVSRecording,
+                            in_shape: Tuple[int, int, int],
+                            n_timesteps: int, window_us: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Densify a recording into training windows: the segments
+    :func:`segment_recording` serves, each scattered into a binary
+    ``(T, H, W, C)`` tensor.  Every window takes the recording's label
+    (``None`` is class 0).  Returns CPU tensors ``(spikes (S, T, H, W, C)
+    float32, labels (S,) int64)``."""
+    wins = [ev.events_to_dense(s, (n_timesteps,) + tuple(in_shape))
+            for s in _segment_streams(rec, in_shape, n_timesteps, window_us)]
+    label = 0 if rec.label is None else int(rec.label)
+    return torch.stack(wins), torch.full((len(wins),), label,
+                                         dtype=torch.int64)
 
 
 class ReplayClient:

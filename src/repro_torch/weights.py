@@ -1,15 +1,17 @@
-"""Weights carried into the port as numpy arrays.
+"""Weights carried between the packages as numpy arrays.
 
 The JAX reference's PRNG cannot be matched, so trained or initialised
-weights cross between the packages as numpy: :func:`params_from_numpy`
-turns per-layer ``w`` arrays into the port's params on a device, and
-:func:`load_net` reads the reference trainer's ``save_net`` ``.npz``
-artifact (``format_version``, ``n_layers``, ``w0..wN``, ``meta_<key>``).
-Every shape is validated against the spec's own layouts.
+weights cross between the packages as numpy, in both directions:
+:func:`params_from_numpy` / :func:`params_to_numpy` convert per-layer
+``w`` arrays, and :func:`save_net` / :func:`load_net` write and read the
+single-file ``.npz`` artifact both trainers use (``format_version``,
+``n_layers``, ``w0..wN`` float32, ``meta_<key>``), so a net trained by
+either package is served by the other.  Every shape is validated against
+the spec's own layouts.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +41,21 @@ def params_from_numpy(arrays: Sequence[np.ndarray], spec: SNNSpec,
         out.append(EConvParams(w=torch.from_numpy(
             np.ascontiguousarray(a, np.float32)).to(dev)))
     return out
+
+
+def params_to_numpy(params: Sequence[EConvParams]) -> List[np.ndarray]:
+    """Per-layer float32 numpy copies of the port's params."""
+    return [p.w.detach().cpu().numpy().astype(np.float32) for p in params]
+
+
+def save_net(path: str, params: Sequence[EConvParams],
+             meta: Optional[dict] = None) -> None:
+    """Write a net as one compressed ``.npz`` in the reference's
+    ``save_net`` layout, which the reference's ``load_net`` reads."""
+    arrs = {f"w{i}": a for i, a in enumerate(params_to_numpy(params))}
+    extras = {f"meta_{k}": np.asarray(v) for k, v in (meta or {}).items()}
+    np.savez_compressed(path, format_version=NET_FORMAT_VERSION,
+                        n_layers=len(arrs), **arrs, **extras)
 
 
 def load_net(path: str, spec: SNNSpec, device=None

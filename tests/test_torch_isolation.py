@@ -16,8 +16,10 @@ import torch
 from repro_torch.core.layer_program import compile_program
 from repro_torch.core.policies import ExecutionPolicy
 from repro_torch.core.sne_net import init_snn, tiny_net
-from repro_torch.data.events_ds import sample_recording_path
+from repro_torch.data.events_ds import TINY, batch_at, sample_recording_path
 from repro_torch.serve import EventServeEngine
+from repro_torch.train.snn_loop import (TrainConfig, evaluate, fit,
+                                        load_trained_tiny)
 from repro_torch.weights import load_net, params_from_numpy
 
 torch.set_num_threads(1)
@@ -50,6 +52,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/kernels/network_window/ref.py",
             "src/repro_torch/kernels/lif/ops.py",
             "src/repro_torch/core/layer_program.py",
+            "src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/optim/schedules.py",
+            "src/repro_torch/train/checkpoint.py",
+            "src/repro_torch/train/fault.py",
+            "src/repro_torch/train/snn_loop.py",
             "chip_smoke.py"} <= scanned
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in PORT_FILES}
@@ -73,7 +80,8 @@ def no_cuda():
                                    "compile_network", "engine",
                                    "engine_default", "engine_network",
                                    "load_net", "params_from_numpy",
-                                   "init_snn"])
+                                   "init_snn", "fit", "evaluate", "batch_at",
+                                   "load_trained_tiny"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
@@ -95,6 +103,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
         "params_from_numpy": lambda: params_from_numpy(
             [p.w.numpy() for p in params], spec),
         "init_snn": lambda: init_snn(np.random.default_rng(0), spec),
+        "fit": lambda: fit(spec, TINY, TrainConfig(steps=1, batch=1)),
+        "evaluate": lambda: evaluate(spec, params, TINY, n=1),
+        "batch_at": lambda: batch_at(0, 0, 1, TINY),
+        "load_trained_tiny": lambda: load_trained_tiny(),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
