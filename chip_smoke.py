@@ -77,7 +77,22 @@ non-zero):
    under every lowering and both dtype policies, class counts bitwise
    equal across the six runs and to the card's ``dense_apply`` for
    every request without drops (launch counts set to 0 before each
-   lowering's runs and read after them).
+   lowering's runs and read after them);
+7. the single-stream event path (``event_predict`` / ``event_apply``, the
+   paper's Listing 1) on the card at full width: phase 4's network and
+   its two cohorts, 16 recordings, under both dtype policies, with output
+   buffers that cannot drop (``default_capacities(spec, activity=1.0,
+   slack=1.0)``): no layer drops, every request's class counts equal the
+   engine's under all three lowerings of phase 4, the output stream and
+   every ``EConvStats`` counter bitwise across the policies, one request
+   per policy bitwise equal to the same call on the CPU, the trained tiny
+   checkpoint on the bundled recording equal to the golden's class counts;
+   one traced inference per cohort and policy launches at most 40 device
+   kernels per boundary and layer, and the per-step scatter kernels
+   (their N = 1 faces) at most once per segment (launch counts set to 0
+   before the phase and read after it).  ms per inference, launches,
+   busy share, the per-layer counters and the SNE ASIC model's energy
+   estimate for them are printed and kept under ``"event_path"``.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -1221,7 +1236,7 @@ def phase_full_width(spec, qn, dev, smi: str) -> dict:
     log("  full width, T = 8: card equals the plain CPU path, every "
         "lowering, both policies")
     return {"launches": launches, "serving": report, "plans": plans,
-            "peak_device_memory_bytes": peak,
+            "outputs": outputs, "peak_device_memory_bytes": peak,
             "trace": {fusion: trace_cohort(spec, qn, dev, smi, fusion)
                       for fusion in LOWERINGS}}
 
@@ -1488,6 +1503,227 @@ def phase_streaming(spec, qn, dev, smi: str) -> dict:
         log(f"  launches of the {fusion} runtime runs: {runtime_launches}")
     torch.cuda.synchronize()
     return {"runs": rows, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the single-stream event path at full width
+# ---------------------------------------------------------------------------
+
+# the per-step scatter kernels, whose N = 1 faces the event path launches
+EVENT_PATH_KERNELS = ("event_conv_batched", "event_pool_batched",
+                      "event_fc_batched")
+# device kernels one traced inference may launch per boundary and layer
+LAUNCHES_PER_BOUNDARY = 40
+DTYPE_POLICIES = ("f32-carrier", "int8-native")
+
+
+def _on(stream, dev):
+    from repro_torch.core import events as ev
+    return ev.EventStream(*(f.to(dev) for f in stream))
+
+
+def _stats_rows(stats) -> list:
+    """Per-layer ``EConvStats`` as ints (one host read)."""
+    import torch
+    table = torch.stack([torch.stack(list(st)) for st in stats.per_layer])
+    keys = stats.per_layer[0]._fields
+    return [dict(zip(keys, row)) for row in table.cpu().tolist()]
+
+
+def _same_run(a, b, what: str) -> None:
+    """Output streams and per-layer counters bitwise equal."""
+    import torch
+    (sa, sta), (sb, stb) = a, b
+    for f, x, y in zip(sa._fields, sa, sb):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{what}: output stream field {f} differs")
+    if _stats_rows(sta) != _stats_rows(stb):
+        raise AssertionError(f"{what}: counters differ: {_stats_rows(sta)} "
+                             f"vs {_stats_rows(stb)}")
+
+
+def _event_golden(dev) -> None:
+    """The trained tiny checkpoint through ``event_predict`` on the six
+    segments of the bundled recording equals the golden's class counts."""
+    import numpy as np
+    from repro_torch.core.quant import quantize_net
+    from repro_torch.core.sne_net import (default_capacities, event_predict,
+                                          tiny_net)
+    from repro_torch.data.events_ds import (load_recording,
+                                            sample_recording_path,
+                                            segment_recording)
+    from repro_torch.weights import load_net
+    spec = tiny_net()
+    params, _ = load_net(sample_recording_path("tiny_gesture_trained.npz"),
+                         spec, device=dev)
+    qn = quantize_net(params, spec, per_channel=False)
+    reqs = segment_recording(load_recording(sample_recording_path()),
+                             qn.spec.in_shape, qn.spec.n_timesteps, WINDOW_US)
+    gold = np.load(GOLDEN)["class_counts"]
+    caps = default_capacities(qn.spec)
+    for dp in DTYPE_POLICIES:
+        got = np.stack([event_predict(
+            qn.params_for(dp), qn.spec, _on(r.stream, dev), caps,
+            dtype_policy=dp, device=dev)[1].cpu().numpy() for r in reqs])
+        if not np.array_equal(got, gold):
+            raise AssertionError(f"event path {dp}: trained golden class "
+                                 f"counts differ:\n{got}\nvs\n{gold}")
+    log(f"  trained tiny checkpoint: event_predict on {len(reqs)} segments "
+        f"equals the golden's class counts under both policies")
+
+
+def phase_event_path(spec, qn, dev, smi: str, served: dict) -> dict:
+    """The single-stream event path at full width: see the module
+    docstring, phase 7.  ``served`` holds phase 4's per-request outputs
+    keyed ``(lowering, dtype policy, cohort)``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.econv import EConvParams
+    from repro_torch.core.engine import (SneConfig, boundary_time_s,
+                                         inference_energy_j, power_w)
+    from repro_torch.core.sne_net import (default_capacities, event_apply,
+                                          event_predict)
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    t_phase = time.perf_counter()
+    T, L = spec.n_timesteps, len(spec.layers)
+    H, W, C = spec.in_shape
+    caps = default_capacities(spec, activity=1.0, slack=1.0)
+    cfg = SneConfig()
+    params = {dp: qn.params_for(dp) for dp in DTYPE_POLICIES}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    report, cpu_checked = [], []
+    for ci, (label, rate) in enumerate(COHORTS):
+        reqs = _cohort(spec, rate, 100 * ci, N_SLOTS, T)
+        streams = [_on(r.stream, dev) for r in reqs]
+        runs = {}
+        for dp in DTYPE_POLICIES:
+            runs[dp] = [event_apply(params[dp], qn.spec, s, caps,
+                                    dtype_policy=dp, device=dev)
+                        for s in streams]
+            ms, launches, counts, rows = [], [], [], []
+            for i, s in enumerate(streams):
+                before = {k: LAUNCHES[k] for k in EVENT_PATH_KERNELS}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, cnt, stats = event_predict(params[dp], qn.spec, s, caps,
+                                              dtype_policy=dp, device=dev)
+                cnt = cnt.cpu().numpy()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                launches.append(sum(LAUNCHES[k] - before[k]
+                                    for k in EVENT_PATH_KERNELS))
+                rows.append(_stats_rows(stats))
+                counts.append(cnt)
+                n_bnd = sum(r["n_boundaries"] for r in rows[-1])
+                if launches[-1] > n_bnd + L:
+                    raise AssertionError(
+                        f"event path {label} {dp} request {i}: "
+                        f"{launches[-1]} scatter launches for at most "
+                        f"{n_bnd + L} segments")
+                if any(r["n_dropped"] for r in rows[-1]):
+                    raise AssertionError(f"event path {label} {dp} request "
+                                         f"{i} dropped: {rows[-1]}")
+                if rows[-1] != _stats_rows(runs[dp][i][1]):
+                    raise AssertionError(f"event path {label} {dp} request "
+                                         f"{i}: event_predict's counters "
+                                         f"differ from event_apply's")
+                for (fusion, edp, elabel), res in served.items():
+                    if elabel == label and not np.array_equal(
+                            res["class_counts"][i], cnt):
+                        raise AssertionError(
+                            f"event path {label} {dp} request {i}: class "
+                            f"counts {cnt} vs the engine's "
+                            f"{res['class_counts'][i]} ({fusion} {edp})")
+            # one traced inference of the cohort under this policy
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, _, stats = event_predict(params[dp], qn.spec, streams[0],
+                                            caps, dtype_policy=dp,
+                                            device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            trace = _device_summary(prof, wall, f"event path {label} {dp} "
+                                    f"inference", smi)
+            traced = _stats_rows(stats)
+            bound = LAUNCHES_PER_BOUNDARY * (
+                sum(r["n_boundaries"] for r in traced) + L)
+            if trace["device_kernel_launches"] > bound:
+                raise AssertionError(
+                    f"event path {label} {dp}: {trace['device_kernel_launches']}"
+                    f" device kernels in one inference > {bound}")
+            per_layer = {k: np.mean([[r[k] for r in rr] for rr in rows],
+                                    axis=0).tolist() for k in rows[0][0]}
+            n_in = float(np.mean([rr[0]["n_update_events"] for rr in rows]))
+            act = n_in / (T * H * W * C)
+            tot_ev = float(np.sum(per_layer["n_update_events"]))
+            n_bnd = float(np.sum(per_layer["n_boundaries"]))
+            row = {
+                "cohort": label, "rate_hz": rate, "policy": dp,
+                "requests": len(reqs), "input_activity": act,
+                "p50_ms_per_inference": float(np.percentile(ms, 50)),
+                "ms_per_inference": ms,
+                "input_events": n_in, "per_layer": per_layer,
+                "total": {k: float(np.sum(v)) for k, v in per_layer.items()},
+                "scatter_launches_per_inference": float(np.mean(launches)),
+                "traced_device_kernel_launches":
+                    trace["device_kernel_launches"],
+                "traced_launch_bound": bound,
+                "traced_device_busy_share": trace["device_busy_share"],
+                "trace": trace,
+                "sne_model_energy_j": inference_energy_j(cfg, tot_ev, act),
+                "sne_model_boundary_energy_j":
+                    power_w(cfg, act) * boundary_time_s(cfg, n_bnd),
+                "predictions": [int(np.argmax(c)) for c in counts],
+                "card": smi}
+            report.append(row)
+            busy = trace["device_busy_share"]
+            log(f"  event path {label} {dp}: activity {act:.4%}, p50 "
+                f"{row['p50_ms_per_inference']:.3f} ms per inference; per "
+                f"inference {n_in:.0f} input events, update events "
+                f"{np.round(per_layer['n_update_events'], 1).tolist()} "
+                f"(total {tot_ev:.0f}), SOPs {row['total']['n_sops']:.0f}, "
+                f"boundaries {np.round(per_layer['n_boundaries'], 1).tolist()}"
+                f", drops {row['total']['n_dropped']:.0f}; scatter launches "
+                f"{row['scatter_launches_per_inference']:.1f} (LAUNCHES), "
+                f"traced device kernels {trace['device_kernel_launches']} "
+                f"(bound {bound}), busy "
+                f"{'not measured' if busy is None else f'{busy:.2%}'} "
+                f"[{smi}]")
+            log(f"    SNE ASIC model's estimate for these counts (not an H100 "
+                f"measurement): {row['sne_model_energy_j'] * 1e6:.3f} uJ of "
+                f"events + {row['sne_model_boundary_energy_j'] * 1e6:.3f} uJ "
+                f"of boundaries per inference")
+        for i in range(len(streams)):
+            _same_run(runs["f32-carrier"][i], runs["int8-native"][i],
+                      f"event path {label} request {i}: f32 vs int8")
+        if ci == 0:
+            # one request on the card against the same call on the CPU
+            for dp in DTYPE_POLICIES:
+                t0 = time.perf_counter()
+                want = event_apply(
+                    [EConvParams(w=p.w.cpu()) for p in params[dp]], qn.spec,
+                    reqs[0].stream, caps, dtype_policy=dp, device="cpu")
+                _same_run(runs[dp][0], want, f"event path {label} {dp}: "
+                          f"card vs CPU")
+                cpu_checked.append({"policy": dp, "cpu_s":
+                                    time.perf_counter() - t0})
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES[k] for k in EVENT_PATH_KERNELS}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"phase 7: kernels never launched on the event "
+                             f"path: {missing}")
+    log(f"  16 requests x 2 policies: no drops; class counts equal the "
+        f"engine's under all three lowerings; streams and counters bitwise "
+        f"across policies; card equals CPU ({cpu_checked}); launches "
+        f"{launches}")
+    _event_golden(dev)
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 7 wall {wall:.1f} s [{smi}]")
+    return {"capacities": caps, "runs": report, "card_vs_cpu": cpu_checked,
+            "launches": launches, "wall_s": wall, "card": smi}
 
 
 # ---------------------------------------------------------------------------
@@ -1883,11 +2119,16 @@ def main() -> int:
         "network, resumed, evaluated and served")
     training = phase_training(dev, smi)
 
+    log("phase 7: the single-stream event path on the full-width Fig. 6 "
+        "network")
+    event_path = phase_event_path(spec, qn, dev, smi, main_path["outputs"])
+
     # a kernel of no serving path reports its count summed over every
-    # lowering's run (phase 4 holds it at 0)
-    launches = {k: main_path["launches"][PATH_OF[k]][k] if PATH_OF[k]
-                else sum(main_path["launches"][f][k] for f in LOWERINGS)
-                for k in REPLACES}
+    # lowering's run (phase 4 holds it at 0); the per-step scatters add the
+    # event path's launches to the per-step lowering's
+    launches = {k: (main_path["launches"][PATH_OF[k]][k] if PATH_OF[k]
+                    else sum(main_path["launches"][f][k] for f in LOWERINGS))
+                + event_path["launches"].get(k, 0) for k in REPLACES}
     kernels = [_kernel_entry(name, [r for r in rows if r["kernel"] == name],
                              launches) for name in REPLACES]
     summary = {"serving": main_path["serving"],
@@ -1895,14 +2136,15 @@ def main() -> int:
                "peak_device_memory_bytes":
                    main_path["peak_device_memory_bytes"],
                "trace": main_path["trace"], "streaming": streaming,
-               "training": training,
+               "training": training, "event_path": event_path,
                "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, **summary}, f, indent=1)
     log(json.dumps({k: v for k, v in summary.items()
-                    if k not in ("trace", "streaming", "training")}))
+                    if k not in ("trace", "streaming", "training",
+                                 "event_path")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

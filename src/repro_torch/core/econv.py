@@ -3,18 +3,23 @@
 Counterpart of ``repro.core.econv``: the static layer description, its
 parameters, the halo rule and the dense (frame-based) path that training
 differentiates through (:func:`dense_syn_current`, :func:`dense_forward`).
-The event path runs through `core.layer_program`.
+The event path (:func:`event_forward`) runs through `core.layer_program`.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import TYPE_CHECKING, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lif import LifParams, lif_rollout
+from repro_torch.core.policies import F32_CARRIER
+from repro_torch.device import resolve_device
+
+if TYPE_CHECKING:  # pragma: no cover - annotation only
+    from repro_torch.core import events as ev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +94,46 @@ class EConvParams(NamedTuple):
 def _halo(spec: EConvSpec) -> int:
     """THE halo rule: conv scatters need K-1 address-filter headroom."""
     return spec.kernel - 1 if spec.kind == "conv" else 0
+
+
+# ---------------------------------------------------------------------------
+# Event path — the SNE execution model (Listing 1), via the layer program.
+# ---------------------------------------------------------------------------
+
+class EConvStats(NamedTuple):
+    """Per-layer event-path counters (the energy-model inputs), int32
+    tensors on the stream's device."""
+
+    n_update_events: torch.Tensor   # consumed UPDATE events
+    n_sops: torch.Tensor            # nominal synaptic operations performed
+    n_out_events: torch.Tensor      # emitted events (pre-overflow-drop)
+    n_dropped: torch.Tensor         # output events lost to capacity overflow
+    n_boundaries: torch.Tensor      # timestep boundaries processed
+
+
+def event_forward(params: EConvParams, spec: EConvSpec,
+                  stream: "ev.EventStream", out_capacity: int,
+                  n_timesteps: int, dtype_policy: str = F32_CARRIER,
+                  device=None):
+    """Consume an event stream through one layer, produce its output stream.
+
+    The one-layer entry point of the executor: the spec is lowered to a
+    single `core.layer_program.LayerOp` and runs in
+    `core.layer_program.layer_event_forward` — work proportional to the
+    events and the *active* timestep boundaries (the lazy TLU leak skips
+    idle ones).  ``dtype_policy`` picks the datapath ("f32-carrier", or
+    "int8-native" for integer-domain specs and int8 codes).  ``device``
+    (default: CUDA) is where it runs; the stream and the weights must
+    already be there.  Returns ``(out_stream, membrane, EConvStats)``.
+    """
+    # local import: layer_program imports this module's spec/param types
+    from repro_torch.core.layer_program import (check_on_device,
+                                                layer_event_forward, layer_op)
+    dev = resolve_device(device)
+    check_on_device("event_forward", dev, stream, [params])
+    return layer_event_forward(
+        layer_op(spec, dtype_policy=dtype_policy, device=dev), params,
+        stream, out_capacity, n_timesteps)
 
 
 # ---------------------------------------------------------------------------

@@ -35,14 +35,15 @@ from __future__ import annotations
 import dataclasses
 import functools
 import warnings
-from typing import (TYPE_CHECKING, Iterator, NamedTuple, Optional,
+from typing import (TYPE_CHECKING, Iterator, List, NamedTuple, Optional,
                     Sequence, Tuple)
 
+import numpy as np
 import torch
 
 from repro_torch.core import events as ev
-from repro_torch.core.econv import (EConvParams, EConvSpec, _halo,
-                                    dense_forward)
+from repro_torch.core.econv import (EConvParams, EConvSpec, EConvStats,
+                                    _halo, dense_forward)
 from repro_torch.core.lif import (LifParams, apply_leak, fire_and_reset,
                                   idle_decay, supports_idle_skip)
 from repro_torch.core.policies import (DTYPE_POLICIES, F32_CARRIER,
@@ -51,10 +52,13 @@ from repro_torch.core.policies import (DTYPE_POLICIES, F32_CARRIER,
                                        PER_STEP, ExecutionPolicy)
 from repro_torch.core.quant import INT8_MAX, INT8_MIN, fake_quant_weights
 from repro_torch.device import resolve_device
-from repro_torch.kernels.event_conv.ops import (event_conv_batched,
+from repro_torch.kernels.event_conv.ops import (event_conv,
+                                                event_conv_batched,
                                                 event_conv_window)
-from repro_torch.kernels.event_fc.ops import event_fc_batched, event_fc_window
-from repro_torch.kernels.event_pool.ops import (event_pool_batched,
+from repro_torch.kernels.event_fc.ops import (event_fc, event_fc_batched,
+                                              event_fc_window)
+from repro_torch.kernels.event_pool.ops import (event_pool,
+                                                event_pool_batched,
                                                 event_pool_window)
 from repro_torch.kernels.network_window import (CLUSTER, SMEM_BUDGET,
                                                 NetLayer, network_window,
@@ -76,16 +80,38 @@ if TYPE_CHECKING:  # pragma: no cover - annotation only
 STEP_ACTIVITY, STREAM_ACTIVITY, SLACK, STEP_ALIGN = 0.25, 0.05, 4.0, 8
 
 
-def layer_step_capacity(lspec: EConvSpec) -> int:
-    """Per-timestep *input*-event bucket for one layer (collector + FIFOs)."""
-    return ev.capacity_for((1,) + lspec.in_shape, STEP_ACTIVITY, SLACK,
-                           align=STEP_ALIGN)
+def layer_step_capacity(lspec: EConvSpec, activity: float = STEP_ACTIVITY,
+                        slack: float = SLACK, align: int = STEP_ALIGN) -> int:
+    """Per-timestep *input*-event bucket for one layer (collector + FIFOs):
+    ``activity`` is the expected share of active input sites a step,
+    ``slack`` the over-provisioning."""
+    return ev.capacity_for((1,) + lspec.in_shape, activity, slack,
+                           align=align)
 
 
-def layer_stream_capacity(lspec: EConvSpec, n_timesteps: int) -> int:
-    """Whole-inference *output*-event buffer for one layer (FIFO/DMA)."""
-    return ev.capacity_for((n_timesteps,) + lspec.out_shape, STREAM_ACTIVITY,
-                           SLACK)
+def layer_stream_capacity(lspec: EConvSpec, n_timesteps: int,
+                          activity: float = STREAM_ACTIVITY,
+                          slack: float = SLACK) -> int:
+    """Whole-inference *output*-event buffer for one layer (FIFO/DMA): the
+    stream it may emit over ``n_timesteps`` on its output geometry."""
+    return ev.capacity_for((n_timesteps,) + lspec.out_shape, activity,
+                           slack)
+
+
+def default_stream_capacities(spec: "SNNSpec",
+                              activity: float = STREAM_ACTIVITY,
+                              slack: float = SLACK) -> List[int]:
+    """Whole-inference output buffers, one per layer (`event_apply`)."""
+    return [layer_stream_capacity(l, spec.n_timesteps, activity, slack)
+            for l in spec.layers]
+
+
+def default_step_capacities(spec: "SNNSpec", activity: float = STEP_ACTIVITY,
+                            slack: float = SLACK,
+                            align: int = STEP_ALIGN) -> List[int]:
+    """Per-timestep input buckets, one per layer (the serving collector)."""
+    return [layer_step_capacity(l, activity, slack, align)
+            for l in spec.layers]
 
 
 # ---------------------------------------------------------------------------
@@ -186,6 +212,21 @@ def validate_policy_layer(lspec: EConvSpec, index: int,
                 f"{val} — lower the net with core.quant.quantize_net")
 
 
+def layer_op(lspec: EConvSpec, index: int = 0,
+             step_capacity: Optional[int] = None,
+             dtype_policy: str = F32_CARRIER, device="cpu") -> LayerOp:
+    """Lower one layer spec onto the datapath (validated against the
+    dtype policy); a conv op carries its halo shift on ``device``."""
+    validate_policy_layer(lspec, index, dtype_policy)
+    off = (torch.tensor([lspec.padding, lspec.padding, 0], dtype=torch.int32,
+                        device=device) if lspec.kind == "conv" else None)
+    return LayerOp(index=index, spec=lspec, halo=_halo(lspec),
+                   step_capacity=(layer_step_capacity(lspec)
+                                  if step_capacity is None
+                                  else step_capacity),
+                   dtype_policy=dtype_policy, event_offset=off)
+
+
 def compile_program(spec: "SNNSpec",
                     step_capacities: Optional[Tuple[int, ...]] = None,
                     policy: Optional[ExecutionPolicy] = None,
@@ -222,16 +263,10 @@ def _compile_cached(spec: "SNNSpec", step_capacities, dtype_policy: str,
     if fusion_policy not in FUSION_POLICIES:
         raise ValueError(f"unknown fusion policy {fusion_policy!r} "
                          f"(expected one of {FUSION_POLICIES})")
-    ops = []
-    for i, l in enumerate(spec.layers):
-        validate_policy_layer(l, i, dtype_policy)
-        cap = (step_capacities[i] if step_capacities is not None
-               else layer_step_capacity(l))
-        off = (torch.tensor([l.padding, l.padding, 0], dtype=torch.int32,
-                            device=device) if l.kind == "conv" else None)
-        ops.append(LayerOp(index=i, spec=l, halo=_halo(l), step_capacity=cap,
-                           dtype_policy=dtype_policy, event_offset=off))
-    return LayerProgram(spec=spec, ops=tuple(ops), dtype_policy=dtype_policy,
+    ops = tuple(layer_op(l, i, None if step_capacities is None
+                         else step_capacities[i], dtype_policy, device)
+                for i, l in enumerate(spec.layers))
+    return LayerProgram(spec=spec, ops=ops, dtype_policy=dtype_policy,
                         fusion_policy=fusion_policy,
                         tile_sparsity=tile_sparsity, device=device)
 
@@ -296,6 +331,46 @@ def scatter_events_batched(op: LayerOp, params: EConvParams,
                                   out_dtype=v_out)
     return event_fc_batched(vp, w, xyc, gate, in_shape=spec.in_shape,
                             out_dtype=v_out)
+
+
+def scatter_event(op: LayerOp, params: EConvParams, vp: torch.Tensor,
+                  e_x: int, e_y: int, e_c: int, gate) -> torch.Tensor:
+    """Accumulate ONE event's synaptic contribution into the single-stream
+    slab ``vp`` (Hp, Wp, C) in place, and return it: the per-event rule
+    the plain scan (:func:`_layer_event_forward_plain`) applies and the
+    kernels apply to whole batches.  ``gate`` (a 0-dim tensor of the slab
+    dtype) multiplies the weights, so a gated-off event adds ``w·0``.
+
+    Conv: ``vp[ox:ox+K, oy:oy+K] += flip(W)[:, :, c, :]·gate`` at the
+    origin in halo coordinates, clamped into the slab (as
+    ``lax.dynamic_slice`` clamps); pool: ``vp[x//s, y//s, c] +=
+    w[c]·gate``, dropped past the grid; fc: ``vp[0, 0] += W[(x·W+y)·C+c]
+    ·gate``, dropped past ``Din``.  Out-of-range channels clamp, as the
+    kernels' plain versions do.
+    """
+    spec = op.spec
+    w = params.w
+    if spec.kind == "conv":
+        K = spec.kernel
+        c = min(max(e_c, 0), w.shape[2] - 1)
+        patch = torch.flip(w, (0, 1))[:, :, c, :] * gate        # (K, K, Co)
+        ox = min(max(e_x + spec.padding, 0), vp.shape[0] - K)
+        oy = min(max(e_y + spec.padding, 0), vp.shape[1] - K)
+        vp[ox:ox + K, oy:oy + K] = vp[ox:ox + K, oy:oy + K] + patch
+        return vp
+    if spec.kind == "pool":
+        s = spec.stride
+        Ho, Wo, C = vp.shape
+        if 0 <= e_x and 0 <= e_y and e_x // s < Ho and e_y // s < Wo \
+                and 0 <= e_c < C:
+            vp[e_x // s, e_y // s, e_c] = (vp[e_x // s, e_y // s, e_c]
+                                           + w[e_c] * gate)
+        return vp
+    H, W, C = spec.in_shape
+    flat = (e_x * W + e_y) * C + e_c
+    if 0 <= flat < w.shape[0]:
+        vp[0, 0, :] = vp[0, 0, :] + w[flat] * gate
+    return vp
 
 
 # ---------------------------------------------------------------------------
@@ -728,6 +803,295 @@ def window_step(params: Sequence[EConvParams], states, class_counts,
         # class counts stay float32 under every policy (exact integer sums)
         class_counts = class_counts + s.sum(dim=(1, 2)).to(torch.float32)
     return tuple(states), class_counts, counts, drops
+
+
+# ---------------------------------------------------------------------------
+# The single-stream executor (explicit events, lazy TLU leak, RST).
+# ---------------------------------------------------------------------------
+
+def check_on_device(what: str, dev: torch.device, stream: ev.EventStream,
+                    params: Sequence[EConvParams]) -> None:
+    """Raise unless every field of ``stream`` and every weight lies on
+    ``dev``: the single-stream entry points move nothing."""
+    for name, t in ([(f"stream field {f}", getattr(stream, f))
+                     for f in stream._fields]
+                    + [(f"layer {i} weights", p.w)
+                       for i, p in enumerate(params)]):
+        if t.device != dev:
+            raise ValueError(f"{what} runs on {dev}; the {name} lies on "
+                             f"{t.device} — move it there first")
+
+
+def _single_stream_dtype(op: LayerOp, params: EConvParams) -> torch.dtype:
+    """The single-stream membrane dtype, which its gates share: the int32
+    accumulator for the whole inference under int8-native (the kernels'
+    ``(int32, int8, int32 -> int32)`` pairing), the weights' dtype on the
+    float carrier.  Refuses soft reset and float weights under
+    int8-native."""
+    if op.lif.reset_mode != "zero":
+        raise ValueError("event path requires reset_mode='zero' (hardware "
+                         "semantics; lazy TLU skip is exact only then)")
+    check_native_weights(op, params)
+    return acc_dtype(op) if op.dtype_policy == INT8_NATIVE else params.w.dtype
+
+
+def _num(x: float, v: torch.Tensor):
+    """A LIF constant as a Python number of ``v``'s kind (integral under
+    int8-native), so that an operation with it runs in ``v.dtype`` with no
+    fill launch."""
+    return float(x) if v.is_floating_point() else int(x)
+
+
+def _fire_into(op: LayerOp, vp: torch.Tensor, spikes: torch.Tensor) -> None:
+    """Finish a timestep on the owned slab ``vp``, in place: clip,
+    threshold into ``spikes`` (the flat site row of that timestep), reset.
+    `core.lif.fire_and_reset`'s arithmetic in four launches: a fired
+    membrane is above a positive threshold, so its ``v·(1 − s)`` is +0."""
+    p = op.lif
+    v = crop_interior(vp, op.halo)
+    if p.state_clip is not None:
+        v.clamp_(-_num(p.state_clip, v), _num(p.state_clip, v))
+    fired = v >= _num(p.threshold, v)
+    spikes.copy_(fired.reshape(-1))
+    v.masked_fill_(fired, 0)
+
+
+def _leak_into(op: LayerOp, vp: torch.Tensor, dt: int) -> None:
+    """``dt`` leak steps at once on the owned slab's interior, clipped, in
+    place: `core.lif.apply_leak` with its step ``leak·dt`` formed on the
+    host in the slab's dtype (a float32 product, as the reference's)."""
+    p = op.lif
+    v = crop_interior(vp, op.halo)
+    step = (float(np.float32(p.leak) * np.float32(dt))
+            if v.is_floating_point() else int(p.leak) * dt)
+    if p.leak_mode == "toward_zero":
+        mag = v.abs().sub_(step).clamp_(min=0)       # max(|v| - step, 0)
+        v.sign_().mul_(mag)
+    else:
+        v.sub_(step)
+    if p.state_clip is not None:
+        v.clamp_(-_num(p.state_clip, v), _num(p.state_clip, v))
+
+
+def _scatter_segment(op: LayerOp, params: EConvParams, vp: torch.Tensor,
+                     xyc: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """One segment's UPDATE events in one N = 1 launch of the layer's
+    scatter kernel (conv events already in halo coordinates)."""
+    spec = op.spec
+    if spec.kind == "conv":
+        return event_conv(vp, params.w, xyc, gate, out_dtype=vp.dtype)
+    if spec.kind == "pool":
+        return event_pool(vp, params.w, xyc, gate, spec.stride,
+                          out_dtype=vp.dtype)
+    return event_fc(vp, params.w, xyc, gate, spec.in_shape,
+                    out_dtype=vp.dtype)
+
+
+def _emit(spikes: torch.Tensor, out_shape, out_capacity: int,
+          n_timesteps: int) -> ev.EventStream:
+    """The output stream of a layer's fire record ``spikes`` (T, Ho·Wo·Co):
+    events in time order, each timestep's in row-major ``(x, y, c)``
+    order, those past ``out_capacity`` dropped.  Each event's index is the
+    cumulative sum of the fires before it — the scan's cursor, restated
+    over every timestep at once on the device."""
+    Ho, Wo, Co = out_shape
+    n_flat = Ho * Wo * Co
+    dev = spikes.device
+    flat = spikes.reshape(-1)
+    k = torch.cumsum(flat, 0) - 1
+    dst = torch.where(flat & (k < out_capacity), k,
+                      torch.full_like(k, out_capacity))
+    src = torch.full((out_capacity + 1,), -1, dtype=torch.int64, device=dev)
+    src.index_put_((dst,), torch.arange(flat.numel(), device=dev))
+    src = src[:out_capacity]
+    valid = src >= 0
+    site = src.clamp(min=0) % n_flat
+
+    def field(v, pad):
+        return torch.where(valid, v, torch.full_like(v, pad)).to(torch.int32)
+    return ev.EventStream(
+        t=field(torch.div(src, n_flat, rounding_mode="floor"), n_timesteps),
+        x=field(torch.div(site, Wo * Co, rounding_mode="floor"), 0),
+        y=field(torch.div(site, Co, rounding_mode="floor") % Wo, 0),
+        c=field(site % Co, 0),
+        op=torch.full((out_capacity,), ev.OP_UPDATE, dtype=torch.int32,
+                      device=dev),
+        valid=valid)
+
+
+def layer_event_forward(op: LayerOp, params: EConvParams,
+                        stream: ev.EventStream, out_capacity: int,
+                        n_timesteps: int):
+    """Consume an event stream through one LayerOp; emit its output stream.
+
+    The reference runs a ``lax.scan`` with one step per event; this
+    function restates that scan exactly, segment by segment.  With ``t_evt =
+    min(where(valid, t, T), T-1)`` and ``t_eff = cummax(t_evt)`` from
+    ``t_cur = 0``, event *i* accumulates into timestep ``t_eff[i]``, and a
+    boundary (fire and emit at the old ``t_eff``, leak by the rise, clip)
+    falls wherever ``t_eff`` rises — for unsorted streams and invalid
+    events mid-stream too; tail padding clamps to ``T-1``, so it adds the
+    scan's last boundary.  Each run of equal ``t_eff`` is a segment: a
+    valid OP_RST zeroes the whole slab at the segment's last RST, and the
+    valid UPDATE events after it go, in stream order, to the layer's N = 1
+    scatter kernel in ONE launch.  The host reads the segment table back
+    once per layer; the fires are recorded per timestep on the device and
+    emitted at the end in one ordered compaction (:func:`_emit`).  Work is
+    proportional to the events and the *active* boundaries (the lazy TLU
+    leak), and the slab stays on the device.
+
+    Under int8-native the membrane stays int32 for the whole inference
+    (clipped only at boundaries); on the float carrier it is in the
+    weights' dtype.  The kernels skip gated-off events where the scan adds
+    ``w·0``, so only the sign of a zero can differ from it.
+
+    Returns ``(out_stream, membrane interior, EConvStats)``.
+    """
+    acc = _single_stream_dtype(op, params)
+    spec = op.spec
+    T = n_timesteps
+    dev = stream.t.device
+    E = stream.capacity
+    Ho, Wo, Co = spec.out_shape
+    upd = stream.valid & (stream.op == ev.OP_UPDATE)
+    rst = stream.valid & (stream.op == ev.OP_RST)
+    t_evt = torch.where(stream.valid, stream.t,
+                        torch.full_like(stream.t, T)).clamp(max=T - 1)
+    t_eff = (torch.cummax(t_evt.clamp(min=0), 0).values.long() if E
+             else t_evt.long())
+    idx = torch.arange(E, device=dev)
+    none = torch.full_like(idx, -1)
+
+    def per_step(init, src, how):
+        return torch.full((T,), init, dtype=torch.int64,
+                          device=dev).scatter_reduce_(0, t_eff, src, how)
+    # per timestep: first event, last RST, last UPDATE (one host read)
+    table = torch.stack([per_step(E, idx, "amin"),
+                         per_step(-1, torch.where(rst, idx, none), "amax"),
+                         per_step(-1, torch.where(upd, idx, none), "amax")])
+    table = table.cpu().numpy()
+    xyc = torch.stack([stream.x, stream.y, stream.c], 1).to(torch.int32)
+    if spec.kind == "conv":
+        xyc = xyc + op.event_offset
+    gate = upd.to(acc)
+    Hp, Wp = Ho + 2 * op.halo, Wo + 2 * op.halo
+    vp = torch.zeros((Hp, Wp, Co), dtype=acc, device=dev)
+    spikes = torch.zeros((T, Ho * Wo * Co), dtype=torch.bool, device=dev)
+    t_cur = n_bnd = 0
+    for ts in np.flatnonzero(table[0] < E):
+        start, last_rst, last_upd = (int(v) for v in table[:, ts])
+        if ts > t_cur:                                      # a boundary
+            _fire_into(op, vp, spikes[t_cur])
+            _leak_into(op, vp, int(ts) - t_cur)
+            t_cur = int(ts)
+            n_bnd += 1
+        if last_rst >= 0:
+            vp.zero_()
+        lo = max(start, last_rst + 1)
+        if last_upd >= lo:
+            vp = _scatter_segment(op, params, vp, xyc[lo:last_upd + 1],
+                                  gate[lo:last_upd + 1])
+    _fire_into(op, vp, spikes[t_cur])         # the final flush (t_cur < T)
+    out = _emit(spikes, spec.out_shape, out_capacity, T)
+    emitted = spikes.sum(dtype=torch.int32)
+    n_upd = upd.sum(dtype=torch.int32)
+    stats = EConvStats(
+        n_update_events=n_upd,
+        n_sops=n_upd * spec.updates_per_event(),
+        n_out_events=emitted,
+        n_dropped=torch.clamp(emitted - out_capacity, min=0),
+        n_boundaries=torch.full((), n_bnd, dtype=torch.int32, device=dev))
+    return out, crop_interior(vp, op.halo), stats
+
+
+def _layer_event_forward_plain(op: LayerOp, params: EConvParams,
+                               stream: ev.EventStream, out_capacity: int,
+                               n_timesteps: int):
+    """The reference's scan, line by line, one event at a time over
+    :func:`scatter_event` (gated-off events add ``w·0``), with the
+    emission cursor of ``fire_emit``.  The plain version the tests hold
+    :func:`layer_event_forward` against; a Python loop over events."""
+    acc = _single_stream_dtype(op, params)
+    spec, p, h = op.spec, op.lif, op.halo
+    T = n_timesteps
+    Ho, Wo, Co = spec.out_shape
+    dev = stream.t.device
+    ii = torch.arange(Ho * Wo * Co, dtype=torch.int32, device=dev)
+    fx, fy, fc = ii // (Wo * Co), (ii // Co) % Wo, ii % Co
+    out = {"t": torch.full((out_capacity,), T, dtype=torch.int32,
+                           device=dev),
+           "x": torch.zeros((out_capacity,), dtype=torch.int32, device=dev),
+           "y": torch.zeros((out_capacity,), dtype=torch.int32, device=dev),
+           "c": torch.zeros((out_capacity,), dtype=torch.int32, device=dev),
+           "valid": torch.zeros((out_capacity,), dtype=torch.bool,
+                                device=dev)}
+    emitted = 0                  # the scan's cursor, which it also counts
+
+    def fire_emit(vp, t_fire):
+        nonlocal emitted
+        v_int = clip_state(crop_interior(vp, h), p)
+        v_new, s = fire_and_reset(v_int, p)
+        vp = write_cropped(vp, v_new, h)
+        mask = s.reshape(-1) > 0
+        k = torch.cumsum(mask.to(torch.int64), 0) - 1 + emitted
+        ok = mask & (k < out_capacity)
+        for name, val in (("t", torch.full_like(fx, t_fire)), ("x", fx),
+                          ("y", fy), ("c", fc),
+                          ("valid", torch.ones_like(ok))):
+            out[name][k[ok]] = val[ok]
+        emitted += int(mask.sum())
+        return vp
+
+    vp = torch.zeros((Ho + 2 * h, Wo + 2 * h, Co), dtype=acc, device=dev)
+    t_cur = n_upd = n_bnd = 0
+    for e_t, e_x, e_y, e_c, e_op, e_valid in zip(
+            *(getattr(stream, f).tolist() for f in stream._fields)):
+        t_evt = min(e_t if e_valid else T, T - 1)
+        if t_evt > t_cur:
+            vp = fire_emit(vp, t_cur)
+            v_int = clip_state(apply_leak(crop_interior(vp, h), p.leak,
+                                          t_evt - t_cur, p.leak_mode), p)
+            vp = write_cropped(vp, v_int, h)
+            n_bnd += 1
+        t_cur = max(t_cur, t_evt)
+        if e_valid and e_op == ev.OP_RST:
+            vp = torch.zeros_like(vp)
+        is_upd = bool(e_valid and e_op == ev.OP_UPDATE)
+        vp = scatter_event(op, params, vp, e_x, e_y, e_c,
+                           torch.full((), int(is_upd), dtype=acc,
+                                      device=dev))
+        n_upd += int(is_upd)
+    vp = fire_emit(vp, min(t_cur, T - 1))
+
+    def i32(n):
+        return torch.tensor(n, dtype=torch.int32, device=dev)
+    stats = EConvStats(n_update_events=i32(n_upd),
+                       n_sops=i32(n_upd * spec.updates_per_event()),
+                       n_out_events=i32(emitted),
+                       n_dropped=i32(max(emitted - out_capacity, 0)),
+                       n_boundaries=i32(n_bnd))
+    stream_out = ev.EventStream(
+        t=out["t"], x=out["x"], y=out["y"], c=out["c"],
+        op=torch.full((out_capacity,), ev.OP_UPDATE, dtype=torch.int32,
+                      device=dev),
+        valid=out["valid"])
+    return stream_out, crop_interior(vp, h), stats
+
+
+def run_stream(program: LayerProgram, params: Sequence[EConvParams],
+               stream: ev.EventStream, capacities: Sequence[int],
+               n_timesteps: int):
+    """Chain :func:`layer_event_forward` through the whole program;
+    ``capacities[i]`` sizes layer *i*'s output buffer.  Returns the final
+    output stream and the per-layer :class:`EConvStats` tuple."""
+    if len(capacities) != len(program.ops):
+        raise ValueError("need one output capacity per layer")
+    stats = []
+    s = stream
+    for op, p, cap in zip(program.ops, params, capacities):
+        s, _, st = layer_event_forward(op, p, s, cap, n_timesteps)
+        stats.append(st)
+    return s, tuple(stats)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ from typing import TYPE_CHECKING, List, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.econv import EConvParams
+from repro_torch.core.econv import EConvParams, EConvSpec
 from repro_torch.core.policies import DTYPE_POLICIES, F32_CARRIER, INT8_NATIVE
 
 if TYPE_CHECKING:  # pragma: no cover - annotation only
@@ -129,6 +129,32 @@ def _integer_lif(lif, s_scalar: float, state_bits: int = 8):
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantizedLayer:
+    """One layer lowered to the SNE integer domain: the spec with an
+    integer LIF plan, integer codes in a float32 carrier, and the scale."""
+
+    spec: EConvSpec
+    params: EConvParams
+    w_scale_max: float
+
+    @staticmethod
+    def from_float(spec: EConvSpec, params: EConvParams,
+                   state_bits: int = 8) -> "QuantizedLayer":
+        """Lower a float layer onto its layer-shared int4 grid (pool
+        synapses pass through at scale 1); threshold and leak in code
+        units, the membrane clip at ``state_bits``."""
+        if spec.kind == "pool":
+            q, s_scalar = params.w, 1.0
+        else:
+            qi, s = quantize_weights_int(params.w, per_channel=False)
+            q, s_scalar = qi.to(torch.float32), float(s)
+        return QuantizedLayer(
+            spec=dataclasses.replace(spec, lif=_integer_lif(
+                spec.lif, s_scalar, state_bits)),
+            params=EConvParams(w=q), w_scale_max=s_scalar)
+
+
+@dataclasses.dataclass(frozen=True)
 class QuantizedNet:
     """A whole eCNN lowered to the SNE integer domain, policy-agnostic.
 
@@ -158,6 +184,10 @@ class QuantizedNet:
         layer-shared grid times that grid's scale."""
         return [EConvParams(w=c.to(torch.float32) * s)
                 for c, s in zip(self.codes, self.shared_scales)]
+
+    def weight_bytes(self) -> int:
+        """Bytes of the packed int4 weight memory image (all layers)."""
+        return int(sum(p.numel() for p in self.packed))
 
     def unpacked_codes(self) -> List[torch.Tensor]:
         """Codes recovered from the packed image (must equal ``codes``)."""
@@ -210,6 +240,19 @@ def quantize_net(params: Sequence[EConvParams], spec: "SNNSpec",
     qspec = dataclasses.replace(spec, layers=tuple(qlayers))
     return QuantizedNet(spec=qspec, codes=tuple(codes), scales=tuple(scales),
                         shared_scales=tuple(shared), packed=tuple(packed))
+
+
+def quantize_state(v: torch.Tensor, scale: float) -> torch.Tensor:
+    """8-bit state quantisation (the cluster memories' storage format);
+    the divisor is a tensor, as the reference divides."""
+    q = torch.round(v / torch.full((), scale, dtype=v.dtype,
+                                   device=v.device))
+    return torch.clamp(q, INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def dequantize_state(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """Inverse of :func:`quantize_state`, float32."""
+    return q.to(torch.float32) * scale
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """eCNN network assembly — the paper's Fig. 6 topology and friends.
 
-Counterpart of ``repro.core.sne_net``: specs, initialisation and the
+Counterpart of ``repro.core.sne_net``: specs, initialisation, the
 dense execution that training runs (:func:`dense_apply`, rate decoding
-and the two losses).  Batch is a leading axis where the reference maps
-one sample at a time.  The Fig. 6 network:
+and the two losses; batch is a leading axis where the reference maps one
+sample at a time) and the single-stream event execution
+(:func:`event_apply`, :func:`event_predict`).  The Fig. 6 network:
 
     128x128x2 -> sum-pool 4 -> conv 16c5(p2) -> pool 2 -> conv 32c3(p1)
               -> pool 2 -> FC 512 -> FC 11
@@ -14,14 +15,21 @@ so whatever must agree across the two packages crosses as numpy arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.econv import EConvParams, EConvSpec, dense_forward
+from repro_torch.core import events as ev
+from repro_torch.core.econv import (EConvParams, EConvSpec, EConvStats,
+                                    dense_forward)
+from repro_torch.core.layer_program import (check_on_device,
+                                            compile_program,
+                                            default_stream_capacities,
+                                            run_stream)
 from repro_torch.core.lif import LifParams
-from repro_torch.core.quant import fake_quant_weights
+from repro_torch.core.policies import F32_CARRIER, PER_STEP, ExecutionPolicy
+from repro_torch.core.quant import QuantizedLayer, fake_quant_weights
 from repro_torch.device import resolve_device
 
 
@@ -155,3 +163,78 @@ def predict(out_spikes: torch.Tensor) -> torch.Tensor:
     """Rate decoding: the class with the most output spikes (the first on
     a tie, as ``jnp.argmax``)."""
     return torch.argmax(spike_counts(out_spikes), -1)
+
+
+# ---------------------------------------------------------------------------
+# Event execution (the SNE model, layer by layer through the C-XBAR)
+# ---------------------------------------------------------------------------
+
+class NetworkEventStats(NamedTuple):
+    """Whole-network event-path counters (per layer + totals)."""
+
+    per_layer: Tuple[EConvStats, ...]
+    total_events: torch.Tensor
+    total_sops: torch.Tensor
+
+
+def event_apply(params: Sequence[EConvParams], spec: SNNSpec,
+                stream: ev.EventStream, capacities: Sequence[int],
+                dtype_policy: str = F32_CARRIER, device=None):
+    """Run the whole eCNN in the event domain, one stream.
+
+    ``capacities[i]`` sizes layer *i*'s output event buffer.  The spec is
+    compiled with the per-step fusion policy (`core.layer_program`,
+    cached) and its stream executor (`layer_program.run_stream`) chains every
+    layer; OP_RST and OP_FIRE events are honoured, which the serving
+    engine refuses.  ``dtype_policy`` picks the datapath; the emitted
+    stream is bitwise the same under both on an integer-domain net.
+    ``device`` (default: CUDA) is where it runs: the stream and the
+    weights must already lie there.  Returns the final output stream and
+    :class:`NetworkEventStats`.
+    """
+    dev = resolve_device(device)
+    check_on_device("event_apply", dev, stream, params)
+    program = compile_program(spec, policy=ExecutionPolicy(
+        dtype_policy=dtype_policy, fusion_policy=PER_STEP), device=dev)
+    s, stats = run_stream(program, params, stream, capacities,
+                          spec.n_timesteps)
+    return s, NetworkEventStats(stats,
+                                sum(st.n_update_events for st in stats),
+                                sum(st.n_sops for st in stats))
+
+
+def event_predict(params: Sequence[EConvParams], spec: SNNSpec,
+                  stream: ev.EventStream, capacities: Sequence[int],
+                  dtype_policy: str = F32_CARRIER, device=None):
+    """Rate-decode one event-path inference: ``(class, counts, stats)``;
+    counts are float32 output events per class, the class the first of
+    the largest (``jnp.argmax``'s rule)."""
+    out, stats = event_apply(params, spec, stream, capacities,
+                             dtype_policy=dtype_policy, device=device)
+    cls = torch.where(out.valid, out.c, spec.n_classes).long()
+    counts = torch.zeros((spec.n_classes + 1,), dtype=torch.float32,
+                         device=cls.device).index_add_(
+        0, cls, torch.ones(cls.shape, dtype=torch.float32,
+                           device=cls.device))[:-1]
+    return torch.argmax(counts), counts, stats
+
+
+def quantize_snn(params: Sequence[EConvParams],
+                 spec: SNNSpec) -> Tuple[List[EConvParams], SNNSpec]:
+    """Lower every layer to the SNE integer domain (4-bit weights, 8-bit
+    state) layer by layer: float32-carrier codes and the integer spec.
+    `core.quant.quantize_net` is the whole-network lowering that also
+    gives the int8 codes of the int8-native policy."""
+    qp, ql = [], []
+    for p, l in zip(params, spec.layers):
+        q = QuantizedLayer.from_float(l, p)
+        qp.append(q.params)
+        ql.append(q.spec)
+    return qp, dataclasses.replace(spec, layers=tuple(ql))
+
+
+def default_capacities(spec: SNNSpec, activity: float = 0.05,
+                       slack: float = 4.0) -> List[int]:
+    """Whole-inference output buffers for :func:`event_apply`, from the
+    one sizing rule in `core.layer_program` (`layer_stream_capacity`)."""
+    return default_stream_capacities(spec, activity, slack)

@@ -11,8 +11,9 @@ Counterpart of ``repro.data.events_ds``, in two halves:
    data cursor is the step index; JAX's PRNG is not matched, only the
    body that turns the draws into spikes (:func:`_sample_one`);
 2. recording ingestion for serving and training: a :class:`DVSRecording`
-   of raw microsecond-timestamped address events, loaders for the portable
-   ``.npz`` format and AEDAT3.1 (the DVS-Gesture release format), binning
+   of raw microsecond-timestamped address events, loaders and writers for
+   the portable ``.npz`` format and AEDAT3.1 (the DVS-Gesture release
+   format; each package reads what the other writes), binning
    into the engine's ``EventStream`` (:func:`recording_to_stream`),
    segmentation into requests (:func:`segment_recording`) or dense
    training windows (:func:`recording_dense_windows`), the numpy-only
@@ -188,6 +189,17 @@ class DVSRecording:
         return int(self.t[-1] - self.t[0]) + 1 if self.n_events else 0
 
 
+def save_events_npz(path: str, rec: DVSRecording) -> None:
+    """Write the portable ``.npz`` event format (version 1, compressed):
+    what the reference's ``load_events_npz`` reads."""
+    np.savez_compressed(
+        path, format_version=1,
+        t=rec.t.astype(np.int64), x=rec.x.astype(np.int32),
+        y=rec.y.astype(np.int32), p=rec.p.astype(np.int8),
+        width=rec.width, height=rec.height,
+        label=-1 if rec.label is None else int(rec.label))
+
+
 def load_events_npz(path: str) -> DVSRecording:
     """Load the portable ``.npz`` event format (version 1)."""
     with np.load(path) as z:
@@ -265,6 +277,42 @@ def load_events_aedat(path: str, max_events: Optional[int] = None,
         y=((w >> 2) & 0x7FFF).astype(np.int32),
         p=((w >> 1) & 1).astype(np.int8),
         width=width, height=height, name=os.path.basename(path))
+
+
+def save_events_aedat(path: str, rec: DVSRecording,
+                      events_per_packet: int = 4096) -> None:
+    """Write a minimal AEDAT3.1 file (polarity events only) that
+    :func:`load_events_aedat` and the reference's loader read back.
+
+    A packet carries one ``eventTSOverflow``, so packets split where the
+    31-bit timestamp wraps.  Timestamps must be non-negative.
+    """
+    if rec.n_events and int(rec.t.min()) < 0:
+        raise ValueError("AEDAT timestamps must be non-negative")
+    ovf_all = rec.t.astype(np.int64) >> 31
+    with open(path, "wb") as f:
+        f.write(_AEDAT_MAGIC + b"\r\n")
+        f.write(b"#Format: RAW\r\n")
+        f.write(f"#Source 1: DVS{rec.width}\r\n".encode())
+        f.write(_AEDAT_END + b"\r\n")
+        lo = 0
+        while lo < rec.n_events:
+            hi = min(lo + events_per_packet, rec.n_events)
+            ovf = int(ovf_all[lo])
+            hi = lo + max(int(np.searchsorted(ovf_all[lo:hi], ovf + 1)), 1)
+            n = hi - lo
+            payload = np.empty((n, 2), np.uint32)
+            payload[:, 0] = (np.uint32(1)
+                             | (rec.p[lo:hi].astype(np.uint32) << 1)
+                             | ((rec.y[lo:hi].astype(np.uint32) & 0x7FFF)
+                                << 2)
+                             | ((rec.x[lo:hi].astype(np.uint32) & 0x7FFF)
+                                << 17))
+            payload[:, 1] = (rec.t[lo:hi].astype(np.int64)
+                             & 0x7FFFFFFF).astype(np.uint32)
+            f.write(_PKT_HDR.pack(_POLARITY_EVENT, 0, 8, 4, ovf, n, n, n))
+            f.write(payload.tobytes())
+            lo = hi
 
 
 def load_recording(path: str) -> DVSRecording:

@@ -123,6 +123,17 @@ def event_conv_batched(v: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+def event_conv(v: torch.Tensor, weights: torch.Tensor, ev_xyc: torch.Tensor,
+               ev_gate: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """The single-stream face: one ``(Hp, Wp, Co)`` halo-padded slab,
+    ``(E, 3)`` events in halo coordinates and ``(E,)`` gates.  Exactly
+    :func:`event_conv_batched` at N = 1 (the reference's
+    ``event_conv_pallas``): a CUDA slab launches ``csrc/event_conv.cu``,
+    counted under :data:`NAME`."""
+    return event_conv_batched(v[None], weights, ev_xyc[None], ev_gate[None],
+                              out_dtype=out_dtype)[0]
+
+
 def event_conv_window(v: torch.Tensor, weights: torch.Tensor,
                       ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
                       alive: torch.Tensor, *, lif, halo: int,

@@ -52,6 +52,15 @@ def event_conv_batched_ref(v: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+def event_conv_ref(v: torch.Tensor, weights: torch.Tensor,
+                   ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
+                   out_dtype=None) -> torch.Tensor:
+    """The single-stream face: :func:`event_conv_batched_ref` at N = 1 on
+    one ``(Hp, Wp, Co)`` slab, ``(E, 3)`` events and ``(E,)`` gates."""
+    return event_conv_batched_ref(v[None], weights, ev_xyc[None],
+                                  ev_gate[None], out_dtype)[0]
+
+
 def event_conv_window_ref(v: torch.Tensor, weights: torch.Tensor,
                           ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
                           alive: torch.Tensor, *, lif, halo: int,

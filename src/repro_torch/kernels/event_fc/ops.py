@@ -85,6 +85,18 @@ def event_fc_batched(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
     return out
 
 
+def event_fc(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
+             ev_gate: torch.Tensor, in_shape: Tuple[int, int, int],
+             out_dtype=None) -> torch.Tensor:
+    """The single-stream face: one ``(1, 1, Dout)`` slab, ``(E, 3)`` events
+    in input coordinates and ``(E,)`` gates.  Exactly
+    :func:`event_fc_batched` at N = 1 (the reference's
+    ``event_fc_pallas``): a CUDA slab launches ``csrc/event_fc.cu``,
+    counted under :data:`NAME`."""
+    return event_fc_batched(v[None], w, ev_xyc[None], ev_gate[None],
+                            in_shape, out_dtype=out_dtype)[0]
+
+
 def event_fc_window(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
                     ev_gate: torch.Tensor, alive: torch.Tensor, *, lif,
                     in_shape: Tuple[int, int, int], native: bool = False):

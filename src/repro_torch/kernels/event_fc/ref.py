@@ -49,6 +49,15 @@ def event_fc_batched_ref(v: torch.Tensor, w: torch.Tensor,
     return out.reshape(v.shape)
 
 
+def event_fc_ref(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
+                 ev_gate: torch.Tensor, in_shape: Tuple[int, int, int],
+                 out_dtype=None) -> torch.Tensor:
+    """The single-stream face: :func:`event_fc_batched_ref` at N = 1 on
+    one ``(1, 1, Dout)`` slab, ``(E, 3)`` events and ``(E,)`` gates."""
+    return event_fc_batched_ref(v[None], w, ev_xyc[None], ev_gate[None],
+                                in_shape, out_dtype)[0]
+
+
 def event_fc_window_ref(v: torch.Tensor, w: torch.Tensor,
                         ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
                         alive: torch.Tensor, *, lif,

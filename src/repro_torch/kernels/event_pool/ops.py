@@ -80,6 +80,18 @@ def event_pool_batched(v: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def event_pool(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
+               ev_gate: torch.Tensor, stride: int,
+               out_dtype=None) -> torch.Tensor:
+    """The single-stream face: one ``(Ho, Wo, C)`` slab, ``(E, 3)`` events
+    in input coordinates and ``(E,)`` gates.  Exactly
+    :func:`event_pool_batched` at N = 1 (the reference's
+    ``event_pool_pallas``): a CUDA slab launches ``csrc/event_pool.cu``,
+    counted under :data:`NAME`."""
+    return event_pool_batched(v[None], w, ev_xyc[None], ev_gate[None],
+                              stride, out_dtype=out_dtype)[0]
+
+
 def event_pool_window(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
                       ev_gate: torch.Tensor, alive: torch.Tensor, *, lif,
                       stride: int, native: bool = False, tiles=None):

@@ -49,6 +49,15 @@ def event_pool_batched_ref(v: torch.Tensor, w: torch.Tensor,
     return buf[:, :S].reshape(v.shape)
 
 
+def event_pool_ref(v: torch.Tensor, w: torch.Tensor, ev_xyc: torch.Tensor,
+                   ev_gate: torch.Tensor, stride: int,
+                   out_dtype=None) -> torch.Tensor:
+    """The single-stream face: :func:`event_pool_batched_ref` at N = 1 on
+    one ``(Ho, Wo, C)`` slab, ``(E, 3)`` events and ``(E,)`` gates."""
+    return event_pool_batched_ref(v[None], w, ev_xyc[None], ev_gate[None],
+                                  stride, out_dtype)[0]
+
+
 def event_pool_window_ref(v: torch.Tensor, w: torch.Tensor,
                           ev_xyc: torch.Tensor, ev_gate: torch.Tensor,
                           alive: torch.Tensor, *, lif, stride: int,

@@ -310,7 +310,8 @@ class EventServeEngine:
             raise ValueError(
                 f"request {req.uid}: stream contains {n_other_op} valid "
                 f"non-UPDATE events (OP_RST/OP_FIRE); the serving engine "
-                f"supports UPDATE-only streams")
+                f"supports UPDATE-only streams — run such streams through "
+                f"repro_torch.core.sne_net.event_apply instead")
         req._validated = True
 
     def try_admit(self, req: EventRequest,

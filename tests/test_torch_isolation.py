@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import events as ev
+from repro_torch.core.econv import event_forward
 from repro_torch.core.layer_program import compile_program
 from repro_torch.core.policies import ExecutionPolicy
-from repro_torch.core.sne_net import init_snn, tiny_net
+from repro_torch.core.sne_net import (default_capacities, event_apply,
+                                      event_predict, init_snn, tiny_net)
 from repro_torch.data.events_ds import TINY, batch_at, sample_recording_path
 from repro_torch.serve import EventServeEngine
 from repro_torch.train.snn_loop import (TrainConfig, evaluate, fit,
@@ -81,10 +84,13 @@ def no_cuda():
                                    "engine_default", "engine_network",
                                    "load_net", "params_from_numpy",
                                    "init_snn", "fit", "evaluate", "batch_at",
-                                   "load_trained_tiny"])
+                                   "load_trained_tiny", "event_forward",
+                                   "event_apply", "event_predict"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
+    stream = ev.dense_to_events(torch.zeros((16, 12, 12, 2)), 8)
+    caps = default_capacities(spec)
     calls = {
         "compile_program": lambda: compile_program(spec),
         "compile_fused": lambda: compile_program(
@@ -107,6 +113,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
         "evaluate": lambda: evaluate(spec, params, TINY, n=1),
         "batch_at": lambda: batch_at(0, 0, 1, TINY),
         "load_trained_tiny": lambda: load_trained_tiny(),
+        "event_forward": lambda: event_forward(params[0], spec.layers[0],
+                                               stream, 16, 16),
+        "event_apply": lambda: event_apply(params, spec, stream, caps),
+        "event_predict": lambda: event_predict(params, spec, stream, caps),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
