@@ -92,7 +92,23 @@ non-zero):
    (their N = 1 faces) at most once per segment (launch counts set to 0
    before the phase and read after it).  ms per inference, launches,
    busy share, the per-layer counters and the SNE ASIC model's energy
-   estimate for them are printed and kept under ``"event_path"``.
+   estimate for them are printed and kept under ``"event_path"``;
+8. the mesh backend (``ExecutionPolicy(backend="mesh")``, slot shards)
+   on the card with repeated devices: phase 4's network, cohorts and
+   8 slots, the 1.2% cohort at 2 and 4 shards (``devices=["cuda:0"] * D``)
+   and the 4.9% cohort at 2, under every lowering and both dtype
+   policies, every request bitwise equal to phase 4's local answer;
+   the two dispatch paths' windows adding up to the mesh's windows, and
+   the real launches (``LAUNCHES``, set to 0 before each run and read
+   after it) equal to D per counted launch of the global path plus the
+   shards' own; ragged requests (unequal lengths, idle tails) that take
+   both paths in one run, bitwise equal to the local engine; one request
+   pinned to slot 0, whose idle shard launches nothing; the streaming
+   runtime over the 2-shard mesh, closed loop, collect and launch under
+   ``torch.cuda.set_sync_debug_mode("error")``, bitwise equal to phase 4;
+   with two or more cards also one shard per card (``devices=None``).
+   Each run's p50 window ms and requests/s beside phase 4's local ones
+   are printed and kept under ``"mesh"``.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -1012,11 +1028,20 @@ def phase_lif_kernel(dev) -> list:
 def serve(qn, reqs, policy, n_slots, dev, window_ms=None):
     """Serve ``reqs`` on a fresh engine under ``policy`` (an
     ``ExecutionPolicy``); return (requests, engine, wall s)."""
-    import torch
     from repro_torch.serve import EventServeEngine
     eng = EventServeEngine(qn.spec, qn.params_for(policy.dtype_policy),
                            n_slots=n_slots, window=WINDOW, device=dev,
                            policy=policy)
+    return drive(eng, reqs, window_ms)
+
+
+def drive(eng, reqs, window_ms=None):
+    """Admit and step ``reqs`` through ``eng`` until drained, each window
+    waited for on every card the engine uses (its ms appended to
+    ``window_ms``); return (requests, engine, wall s)."""
+    import torch
+    cards = {d for d in (eng.devices if hasattr(eng, "devices")
+                         else (eng.device,)) if d.type == "cuda"}
     pending = list(reqs)
     for r in pending:
         eng.validate_request(r)
@@ -1026,8 +1051,8 @@ def serve(qn, reqs, policy, n_slots, dev, window_ms=None):
             pending.pop(0)
         tw = time.perf_counter()
         n = eng.step()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        for d in cards:
+            torch.cuda.synchronize(d)
         if window_ms is not None and n:
             window_ms.append(1e3 * (time.perf_counter() - tw))
         if n == 0 and not pending:
@@ -2030,6 +2055,255 @@ def phase_training(dev, smi: str) -> dict:
             "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh backend, slot shards on the card
+# ---------------------------------------------------------------------------
+
+# (cohort index, shards): the 1.2% cohort at D = 2 and 4, the 4.9% at D = 2
+MESH_RUNS = ((0, 2), (0, 4), (1, 2))
+# ragged requests, (timesteps, timesteps with events): the router deals
+# them to the two shards in turn, so shard 1 (odd positions, at most 20
+# windows) runs dry five windows before shard 0, and four requests fall
+# idle while their shard's other slots still step (frozen rows)
+RAGGED = ((100, 100), (20, 20), (60, 24), (48, 48), (12, 12), (60, 40),
+          (100, 40), (80, 80))
+
+
+def _fresh(reqs):
+    """New request objects on the same (read-only) streams."""
+    return [dataclasses.replace(r, done=False, class_counts=None,
+                                prediction=None, telemetry=None)
+            for r in reqs]
+
+
+def _mesh_engine(qn, policy, devices):
+    """A mesh engine of :data:`N_SLOTS` slots over ``devices`` under
+    ``policy`` (its backend set to ``"mesh"``)."""
+    from repro_torch.serve import EventServeEngine
+    pol = dataclasses.replace(policy, backend="mesh")
+    return EventServeEngine(qn.spec, qn.params_for(pol.dtype_policy),
+                            n_slots=N_SLOTS, window=WINDOW, policy=pol,
+                            devices=devices)
+
+
+def _ragged(spec, rate_hz: float):
+    from repro_torch.data.events_ds import (segment_recording,
+                                            synthesize_recording)
+    H, W, _ = spec.in_shape
+    reqs = []
+    for i, (T, active) in enumerate(RAGGED):
+        rec = synthesize_recording(seed=900 + i, width=W, height=H,
+                                   duration_us=active * WINDOW_US,
+                                   rate_hz=rate_hz, label=i % 11)
+        reqs += segment_recording(rec, spec.in_shape, T, WINDOW_US,
+                                  uid_base=900 + i)
+    return reqs
+
+
+def _mesh_counts(eng, what: str) -> dict:
+    """The mesh's counters after a run whose launch counts were set to 0
+    just before it: the two paths add up to its windows, and the real
+    launches (``LAUNCHES``, and the mesh's ``device_kernel_launches``)
+    are D per counted launch of the global path plus the shards' own."""
+    from repro_torch.kernels import LAUNCHES
+    st = eng.stats
+    own = sum(sh.stats["kernel_launches"] for sh in eng.shards)
+    real = sum(LAUNCHES.values())
+    want = eng.D * (st["kernel_launches"] - own) + own
+    if st["mesh_global_windows"] + st["mesh_shard_windows"] \
+            != st["windows"] or not real == want \
+            == st["device_kernel_launches"]:
+        raise AssertionError(f"{what}: {real} launches, expected {want}; "
+                             f"stats {st}")
+    return {"windows": st["windows"],
+            "mesh_global_windows": st["mesh_global_windows"],
+            "mesh_shard_windows": st["mesh_shard_windows"],
+            "counted_launches": st["kernel_launches"],
+            "real_launches": real,
+            "skipped_slot_windows": st["skipped_slot_windows"]}
+
+
+def phase_mesh(spec, qn, dev, smi: str, main_path: dict) -> dict:
+    """The mesh backend (``ExecutionPolicy(backend="mesh")``) at full
+    width on one card with repeated devices: see the module docstring,
+    phase 8.  ``main_path`` is phase 4's result: its per-request outputs
+    are the oracle, its serving rows the local numbers shown beside."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.core.policies import ExecutionPolicy
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.serve.runtime import StreamingRuntime, WallClock
+    t_phase = time.perf_counter()
+    T = spec.n_timesteps
+    outputs = main_path["outputs"]
+    local = {(r["fusion"], r["policy"], r["cohort"]): r
+             for r in main_path["serving"]}
+    cohorts = {label: _cohort(spec, rate, 100 * ci, N_SLOTS, T)
+               for ci, (label, rate) in enumerate(COHORTS)}
+    torch.cuda.synchronize()
+    mesh_launches = {k: 0 for k in LAUNCHES}
+
+    def run(eng, reqs, what, window_ms=None):
+        """Drive ``eng`` (launch counts set to 0 just before, read just
+        after) and check its counters."""
+        reset_launch_counts()
+        with warnings.catch_warnings():
+            if eng.fusion_policy == "fused-network":
+                warnings.simplefilter("error")       # no fallback
+            reqs, _, wall = drive(eng, reqs, window_ms)
+        for k in LAUNCHES:
+            mesh_launches[k] += LAUNCHES[k]
+        return reqs, wall, _mesh_counts(eng, what)
+
+    rows = []
+    by_lowering = {f: {k: 0 for k in LAUNCHES} for f in LOWERINGS}
+    for ci, D in MESH_RUNS:
+        label = COHORTS[ci][0]
+        for fusion in LOWERINGS:
+            for dp in DTYPE_POLICIES:
+                pol = ExecutionPolicy(dtype_policy=dp, fusion_policy=fusion)
+                what = f"mesh D={D} {fusion} {dp} cohort {label}"
+                win_ms = []
+                reqs, wall, counts = run(
+                    _mesh_engine(qn, pol, [dev] * D),
+                    _fresh(cohorts[label]), what, win_ms)
+                for k in LAUNCHES:
+                    by_lowering[fusion][k] += LAUNCHES[k]
+                assert_same(results(reqs), outputs[(fusion, dp, label)],
+                            f"{what} vs phase 4's local engine")
+                loc = local[(fusion, dp, label)]
+                row = {"shards": D, "fusion": fusion, "policy": dp,
+                       "cohort": label, "requests": len(reqs),
+                       "wall_s": wall, "requests_per_s": len(reqs) / wall,
+                       "p50_window_ms": float(np.percentile(win_ms, 50)),
+                       "local_p50_window_ms": loc["p50_window_ms"],
+                       "local_requests_per_s": loc["requests_per_s"],
+                       **counts}
+                rows.append(row)
+                log(f"  {what}: p50 window {row['p50_window_ms']:.3f} ms "
+                    f"(local {loc['p50_window_ms']:.3f}), "
+                    f"{row['requests_per_s']:.3f} req/s (local "
+                    f"{loc['requests_per_s']:.3f}); windows global "
+                    f"{counts['mesh_global_windows']} / per-shard "
+                    f"{counts['mesh_shard_windows']}, launches counted "
+                    f"{counts['counted_launches']}, real "
+                    f"{counts['real_launches']}; bitwise equal to phase 4 "
+                    f"[{smi}]")
+    missing = [k for k in LAUNCHES if PATH_OF[k]
+               and by_lowering[PATH_OF[k]][k] == 0]
+    if missing:
+        raise AssertionError(f"mesh runs launched no {missing}")
+
+    # both paths in one run: ragged requests against the local engine
+    ragged = _ragged(spec, COHORTS[1][1])
+    both = []
+    for fusion in LOWERINGS:
+        for dp in DTYPE_POLICIES:
+            pol = ExecutionPolicy(dtype_policy=dp, fusion_policy=fusion)
+            what = f"mesh D=2 ragged {fusion} {dp}"
+            want = results(serve(qn, _fresh(ragged), pol, N_SLOTS, dev)[0])
+            reqs, _, counts = run(_mesh_engine(qn, pol, [dev] * 2),
+                                  _fresh(ragged), what)
+            assert_same(results(reqs), want, f"{what} vs the local engine")
+            if not (counts["mesh_global_windows"] > 0
+                    and counts["mesh_shard_windows"] > 0
+                    and counts["skipped_slot_windows"] > 0):
+                raise AssertionError(f"{what}: not both paths: {counts}")
+            both.append({"fusion": fusion, "policy": dp, **counts})
+    log(f"  ragged requests (timesteps, with events) {RAGGED} at D = 2: "
+        f"both paths taken under every lowering and policy, idle slots "
+        f"frozen on the global path, every answer bitwise the local "
+        f"engine's: {[(b['mesh_global_windows'], b['mesh_shard_windows']) for b in both]}"
+        f" (global, per-shard) windows")
+
+    # an idle shard launches nothing
+    eng = _mesh_engine(qn, ExecutionPolicy(), [dev] * 2)
+    (req,) = _fresh(cohorts["1.2%"][:1])
+    if not eng.try_admit(req, slot=0):
+        raise AssertionError("slot 0 of an empty mesh refused a request")
+    reset_launch_counts()
+    for _ in range(4 * T):
+        if req.done:
+            break
+        eng.step()
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        mesh_launches[k] += LAUNCHES[k]
+    real = sum(LAUNCHES.values())
+    st, own0 = eng.stats, eng.shards[0].stats["kernel_launches"]
+    if not (req.done and st["mesh_global_windows"] == 0
+            and eng.shards[1].stats["kernel_launches"] == 0
+            and real == own0 == st["device_kernel_launches"] > 0):
+        raise AssertionError(f"idle shard: done {req.done}, {real} launches, "
+                             f"shard 0 {own0}, stats {st}")
+    assert_same(results([req]),
+                {k: v[:1] for k, v in
+                 outputs[("fused-window", "f32-carrier", "1.2%")].items()},
+                "the pinned request vs phase 4")
+    idle = {"windows": st["windows"], "launches": real,
+            "shard0_launches": own0, "shard1_launches": 0}
+    log(f"  one request pinned to slot 0 at D = 2: {st['windows']} windows, "
+        f"all per-shard; shard 0 launched {own0} (LAUNCHES {real}), shard 1 "
+        f"nothing; answer bitwise phase 4's")
+
+    # the streaming runtime over the mesh, closed loop, no device wait in
+    # collect or launch
+    labels = [c[0] for c in COHORTS]
+    oracle = {"uids": [r.uid for l in labels for r in cohorts[l]],
+              **{k: np.concatenate([
+                  outputs[("fused-window", "f32-carrier", l)][k]
+                  for l in labels]) for k in outputs[
+                  ("fused-window", "f32-carrier", labels[0])]}}
+    mpol = ExecutionPolicy(backend="mesh")
+    eng = _mesh_engine(qn, mpol, [dev] * 2)
+    eng._collect_phase = _no_sync(eng._collect_phase)
+    eng._launch_phase = _no_sync(eng._launch_phase)
+    rt = StreamingRuntime(eng, queue_capacity=2 * N_SLOTS, clock=WallClock(),
+                          policy=mpol)
+    reqs = _fresh([r for l in labels for r in cohorts[l]])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rt.submit(reqs)
+    rep = rt.serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k in LAUNCHES:
+        mesh_launches[k] += LAUNCHES[k]
+    counts = _mesh_counts(eng, "runtime over mesh")
+    if _same_as_oracle(reqs, oracle, "runtime over the mesh") != len(reqs):
+        raise AssertionError(f"runtime over the mesh: not every request "
+                             f"completed: {rep}")
+    runtime = {"requests": len(reqs), "wall_s": wall,
+               "requests_per_s": len(reqs) / wall, "report": rep, **counts}
+    log(f"  StreamingRuntime closed loop over the D = 2 mesh, "
+        f"{len(reqs)} requests (both cohorts): {runtime['requests_per_s']:.3f}"
+        f" req/s; {_report_line(rep)}; collect and launch under "
+        f"sync-debug 'error'; every request bitwise phase 4's [{smi}]")
+
+    # one shard per distinct card, where there are several
+    n_cards = torch.cuda.device_count()
+    distinct = None
+    if n_cards >= 2:
+        label = COHORTS[0][0]
+        reqs, wall, counts = run(_mesh_engine(qn, ExecutionPolicy(), None),
+                                 _fresh(cohorts[label]),
+                                 "mesh over every card")
+        assert_same(results(reqs),
+                    outputs[("fused-window", "f32-carrier", label)],
+                    "mesh over every card vs phase 4")
+        distinct = {"cards": n_cards, "wall_s": wall, **counts}
+        log(f"  one shard per card over {n_cards} cards: bitwise phase 4's")
+    else:
+        log("  only one card is visible: the distinct-card case "
+            "(devices=None, one shard per card) did not run")
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 8 wall {wall:.1f} s [{smi}]")
+    return {"runs": rows, "ragged": both, "idle_shard": idle,
+            "runtime": runtime, "distinct_cards": distinct,
+            "launches": mesh_launches, "wall_s": wall, "card": smi}
+
+
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
     the window kernels and the megakernel with the sparse bitmaps the main
@@ -2123,12 +2397,18 @@ def main() -> int:
         "network")
     event_path = phase_event_path(spec, qn, dev, smi, main_path["outputs"])
 
+    log("phase 8: the mesh backend (slot shards) on the full-width Fig. 6 "
+        "network")
+    mesh = phase_mesh(spec, qn, dev, smi, main_path)
+
     # a kernel of no serving path reports its count summed over every
     # lowering's run (phase 4 holds it at 0); the per-step scatters add the
-    # event path's launches to the per-step lowering's
+    # event path's launches to the per-step lowering's, and every serving
+    # kernel the mesh runs' launches
     launches = {k: (main_path["launches"][PATH_OF[k]][k] if PATH_OF[k]
                     else sum(main_path["launches"][f][k] for f in LOWERINGS))
-                + event_path["launches"].get(k, 0) for k in REPLACES}
+                + event_path["launches"].get(k, 0) + mesh["launches"][k]
+                for k in REPLACES}
     kernels = [_kernel_entry(name, [r for r in rows if r["kernel"] == name],
                              launches) for name in REPLACES]
     summary = {"serving": main_path["serving"],
@@ -2137,14 +2417,14 @@ def main() -> int:
                    main_path["peak_device_memory_bytes"],
                "trace": main_path["trace"], "streaming": streaming,
                "training": training, "event_path": event_path,
-               "build_s": secs,
+               "mesh": mesh, "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, **summary}, f, indent=1)
     log(json.dumps({k: v for k, v in summary.items()
                     if k not in ("trace", "streaming", "training",
-                                 "event_path")}))
+                                 "event_path", "mesh")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

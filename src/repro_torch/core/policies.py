@@ -9,7 +9,8 @@ and the same default, validated where the policy is written.
 * **fusion policy** — ``"per-step"`` (one scatter launch per layer per
   timestep; the bitwise oracle), ``"fused-window"`` (one launch per layer
   per window) or ``"fused-network"`` (one launch per window).
-* **backend** — ``"local"`` (one device) or ``"mesh"`` (not ported yet).
+* **backend** — ``"local"`` (one device) or ``"mesh"`` (the slot axis
+  sharded over several devices, `serve.mesh_engine`).
 
 Plus the serving-time toggles ``idle_skip`` and ``tile_sparsity``.
 """

@@ -1,19 +1,23 @@
-"""Event-stream serving: the public API (counterpart of ``repro.serve``;
-the mesh backend is not ported yet).
+"""Event-stream serving: the public API (counterpart of ``repro.serve``).
 
     from repro_torch.serve import (EventRequest, EventServeEngine,
                                    StreamingRuntime, ExecutionPolicy)
 
 Module layout behind the facade:
 
-  * `repro_torch.serve.event_engine` — slot-batched engine + request type;
+  * `repro_torch.serve.event_engine` — slot-batched engine + request type
+    (the local backend, and the ``policy.backend`` knob);
+  * `repro_torch.serve.mesh_engine`  — the slot-sharded ``"mesh"``
+    backend over several devices;
   * `repro_torch.serve.runtime`      — streaming runtime (admission, SLOs,
     load generation, clocks, metrics);
   * `repro_torch.serve.telemetry`    — per-request energy/event telemetry.
 """
+from repro_torch.core.layer_program import default_step_capacities
 from repro_torch.core.policies import ExecutionPolicy, all_policies
 from repro_torch.serve.event_engine import (EventRequest, EventServeEngine,
                                             event_bucket, event_bucket_ladder)
+from repro_torch.serve.mesh_engine import MeshEventServeEngine
 from repro_torch.serve.runtime import (ManualClock, PoissonLoadGen,
                                        StreamingMetrics, StreamingRuntime,
                                        StreamRequest, WallClock,
@@ -24,8 +28,8 @@ from repro_torch.serve.telemetry import (RequestTelemetry, proportionality_r2,
 
 __all__ = [
     # engine
-    "EventRequest", "EventServeEngine", "event_bucket",
-    "event_bucket_ladder",
+    "EventRequest", "EventServeEngine", "MeshEventServeEngine",
+    "event_bucket", "event_bucket_ladder", "default_step_capacities",
     # execution policy (re-export: the engine's construction knob)
     "ExecutionPolicy", "all_policies",
     # streaming runtime

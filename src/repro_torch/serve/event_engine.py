@@ -1,6 +1,8 @@
 """Slot-batched continuous serving of concurrent DVS event streams.
 
-Counterpart of ``repro.serve.event_engine`` on the local backend.  A fixed
+Counterpart of ``repro.serve.event_engine``: the local backend, and the
+construction knob that returns the mesh backend
+(`serve.mesh_engine.MeshEventServeEngine`) for a mesh policy.  A fixed
 set of slots (the SNE engine slices) each hold one request's membranes;
 a host-side numpy collector bins every slot's next window of events into
 padded per-timestep buckets (overflow past the bucket is dropped and
@@ -48,8 +50,9 @@ from repro_torch.core.layer_program import (check_native_weights,
                                             effective_fusion, padded_state,
                                             window_step)
 from repro_torch.core.lif import supports_idle_skip
-from repro_torch.core.policies import (BACKEND_LOCAL, FUSED_NETWORK,
-                                       FUSED_WINDOW, ExecutionPolicy)
+from repro_torch.core.policies import (BACKEND_LOCAL, BACKEND_MESH,
+                                       FUSED_NETWORK, FUSED_WINDOW,
+                                       ExecutionPolicy)
 from repro_torch.core.sne_net import SNNSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.window_common import tile_grid
@@ -153,6 +156,31 @@ class InflightWindow:
 class EventServeEngine:
     """Continuous slot-batched inference over concurrent event streams."""
 
+    def __new__(cls, *args, **kwargs):
+        """Dispatch construction on ``policy.backend``.
+
+        ``EventServeEngine(..., policy=ExecutionPolicy(backend="mesh"),
+        devices=...)`` returns a `serve.mesh_engine.MeshEventServeEngine`:
+        the same constructor arguments and serving surface, the slot axis
+        sharded over ``devices``.  ``"local"`` (the default) stays this
+        class, the parity oracle.  A local engine is placed with
+        ``device=``, a mesh engine with ``devices=``; the other one raises.
+        """
+        pol = kwargs.get("policy")
+        if cls is EventServeEngine and pol is not None \
+                and pol.backend == BACKEND_MESH:
+            from repro_torch.serve.mesh_engine import MeshEventServeEngine
+            cls = MeshEventServeEngine
+        mesh = cls is not EventServeEngine
+        if mesh and kwargs.get("device") is not None:
+            raise ValueError("a mesh engine places its slot shards with "
+                             "devices= (a sequence, a count or None), not "
+                             "device=")
+        if not mesh and kwargs.get("devices") is not None:
+            raise ValueError("devices= places the slot shards of the mesh "
+                             "backend; a local engine takes device=")
+        return super().__new__(cls)
+
     def __init__(self, spec: SNNSpec, params: Sequence[EConvParams],
                  n_slots: int, window: int = 4,
                  step_capacities: Optional[Sequence[int]] = None,
@@ -164,9 +192,10 @@ class EventServeEngine:
 
         ``policy`` (default ``ExecutionPolicy()``: float32 carrier,
         fused-window, idle skip and tile sparsity on) selects dtype policy,
-        lowering, idle skip and tile sparsity; the port serves the
-        ``"per-step"``, ``"fused-window"`` and ``"fused-network"``
-        lowerings on the ``"local"`` backend (other backends raise).  ``device`` defaults to CUDA and
+        lowering (``"per-step"``, ``"fused-window"`` or
+        ``"fused-network"``), idle skip, tile sparsity and backend: a
+        ``"mesh"`` policy makes ``EventServeEngine(...)`` return the mesh
+        engine (see :meth:`__new__`).  ``device`` defaults to CUDA and
         raises without a card unless ``"cpu"`` is asked for; ``params``
         must already live there.
         """
@@ -176,10 +205,10 @@ class EventServeEngine:
             raise ValueError(f"n_parallel_slices={n_parallel_slices} < 1")
         pol = policy if policy is not None else ExecutionPolicy()
         if pol.backend != BACKEND_LOCAL:
-            raise NotImplementedError(
-                f"backend {pol.backend!r} is not ported to the PyTorch/CUDA "
-                f"package yet (ROADMAP Queue A item 5, the multi-device "
-                f"backend); use backend={BACKEND_LOCAL!r}")
+            # unreachable through EventServeEngine(...), whose __new__
+            # routes mesh policies to the subclass; loud for direct callers
+            raise ValueError(f"EventServeEngine is the {BACKEND_LOCAL!r} "
+                             f"backend; policy selects {pol.backend!r}")
         self.device = resolve_device(device)
         self.policy = pol
         self.spec = spec
@@ -454,7 +483,8 @@ class EventServeEngine:
             self._finish(slot)
         return n_active
 
-    def _launch_phase(self, col: CollectedWindow
+    def _launch_phase(self, col: CollectedWindow,
+                      block_eb: Optional[int] = None
                       ) -> Tuple[Optional[InflightWindow], List[int]]:
         """Launch one collected window and advance the host bookkeeping.
 
@@ -463,10 +493,12 @@ class EventServeEngine:
         participating slot was idle-skipped) and the slots whose request
         completed with it; their class counts are copied back with the
         window, and callers :meth:`_finish` them only after it retired.
+        ``block_eb`` is the mesh backend's global path
+        (:meth:`_launch_window`).
         """
         dense_idx = self._select_dense(col)
-        inflight = (self._launch_window(dense_idx, col) if len(dense_idx)
-                    else None)
+        inflight = (self._launch_window(dense_idx, col, block_eb)
+                    if len(dense_idx) else None)
         finished = self._account_window(col, dense_idx)
         if finished:
             (host,), ready = self._to_host(self.class_counts)
@@ -509,17 +541,25 @@ class EventServeEngine:
         """Round up to a power of two (capped)."""
         return min(1 << max(n - 1, 0).bit_length(), cap)
 
-    def _launch_window(self, idx: np.ndarray,
-                       col: CollectedWindow) -> InflightWindow:
+    def _launch_window(self, idx: np.ndarray, col: CollectedWindow,
+                       block_eb: Optional[int] = None) -> InflightWindow:
         """Compact the stepping slots, enqueue the window step and the
         copies of its counters back; wait on nothing.
 
         Without idle skip this is the full batch (all N slots, full event
         axis) — the reference the compacted path matches bit for bit.
+        ``block_eb`` is the mesh backend's global path: the full batch,
+        the event axis trimmed to ``block_eb`` (the bucket common to every
+        shard), the participating slots outside ``idx`` frozen (gate and
+        liveness zeroed, their leak left deferred).  The mesh counts that
+        launch once for all its shards, so it adds nothing to this
+        engine's launch counters.
         """
         xyc, gate, alive = col.xyc, col.gate, col.alive
         A = len(idx)
-        if self.idle_skip:
+        if block_eb is not None:
+            gidx, Eb = np.arange(self.N), block_eb
+        elif self.idle_skip:
             # slot axis: power-of-two bucket; the dummy tail mirrors slot 0
             # but is gated off and frozen
             Ab = self._bucket(A, self.N)
@@ -529,19 +569,24 @@ class EventServeEngine:
         else:
             gidx = np.arange(self.N)
             Eb = Eb_pow2 = self.caps[0]
+        full_batch = len(gidx) == self.N and bool(
+            (gidx == np.arange(self.N)).all())
+        pos = idx if full_batch else np.arange(A)   # batch positions of idx
         pre = np.zeros((len(gidx),), np.int64)
         if self.idle_skip and self.pending_dt[idx].any():
-            pre[:A] = self.pending_dt[idx]
+            pre[pos] = self.pending_dt[idx]
             self.pending_dt[idx] = 0
             self.stats["leak_flushes"] += 1
         xyc_w = np.ascontiguousarray(xyc[:, gidx, :Eb])
         gate_w = np.ascontiguousarray(gate[:, gidx, :Eb])
         alive_w = np.ascontiguousarray(alive[:, gidx])
-        if self.idle_skip and len(gidx) > A:
-            gate_w[:, A:] = 0.0
-            alive_w[:, A:] = 0.0
-        full_batch = len(gidx) == self.N and bool(
-            (gidx == np.arange(self.N)).all())
+        # freeze every other batch position: the compaction's dummy tail
+        # (it mirrors slot 0) or a full block's idle slots (a slot that
+        # does not participate is all zeros already)
+        frozen = np.ones((len(gidx),), bool)
+        frozen[pos] = False
+        gate_w[:, frozen] = 0.0
+        alive_w[:, frozen] = 0.0
         if full_batch:
             states_c, cc_c = self.states, self.class_counts
         else:
@@ -560,6 +605,11 @@ class EventServeEngine:
                 v[real] = sc[:A]
             self.class_counts[real] = cc_c[:A]
         self.dense_ts[idx] += alive[:, idx].sum(axis=0).astype(np.int64)
+        (counts_h, drops_h), ready = self._to_host(counts, drops)
+        inflight = InflightWindow(idx=idx, n_compact=A, full_batch=full_batch,
+                                  counts=counts_h, drops=drops_h, ready=ready)
+        if block_eb is not None:
+            return inflight
         self.stats["step_calls"] += 1
         self.stats["launched_events"] += int(
             np.sum(gate_w[:, :A] if not full_batch else gate_w[:, idx]))
@@ -576,16 +626,17 @@ class EventServeEngine:
             np.minimum(xyc_w[t_, s_, e_, 1] // tw, nTy - 1)] = True
         self.stats["hot_tiles"] += int(hot.sum())
         self.stats["total_tiles"] += A * nTx * nTy
-        # the launches of the lowering that ran (a fused-network program
-        # over its budget ran fused-window: window_step's own predicate)
+        self.stats["kernel_launches"] += self._window_launches()
+        return inflight
+
+    def _window_launches(self) -> int:
+        """Kernel launches of one window step under the lowering that runs
+        (a fused-network program over its budget runs fused-window:
+        `window_step`'s own predicate)."""
         fusion = effective_fusion(self.program)
         L = len(self.program.ops)
-        self.stats["kernel_launches"] += (
-            1 if fusion == FUSED_NETWORK
-            else L if fusion == FUSED_WINDOW else self.W * L)
-        (counts_h, drops_h), ready = self._to_host(counts, drops)
-        return InflightWindow(idx=idx, n_compact=A, full_batch=full_batch,
-                              counts=counts_h, drops=drops_h, ready=ready)
+        return (1 if fusion == FUSED_NETWORK
+                else L if fusion == FUSED_WINDOW else self.W * L)
 
     def _retire_phase(self, w: InflightWindow) -> None:
         """Wait for one launched window's counters and account them: the

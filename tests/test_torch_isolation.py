@@ -82,6 +82,7 @@ def no_cuda():
 @pytest.mark.parametrize("entry", ["compile_program", "compile_fused",
                                    "compile_network", "engine",
                                    "engine_default", "engine_network",
+                                   "engine_mesh",
                                    "load_net", "params_from_numpy",
                                    "init_snn", "fit", "evaluate", "batch_at",
                                    "load_trained_tiny", "event_forward",
@@ -99,6 +100,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
                                            policy=ExecutionPolicy(
                                                fusion_policy="per-step")),
         "engine_default": lambda: EventServeEngine(spec, params, n_slots=2),
+        "engine_mesh": lambda: EventServeEngine(
+            spec, params, n_slots=2, policy=ExecutionPolicy(backend="mesh")),
         "compile_network": lambda: compile_program(
             spec, policy=ExecutionPolicy(fusion_policy="fused-network")),
         "engine_network": lambda: EventServeEngine(
