@@ -108,7 +108,28 @@ non-zero):
    ``torch.cuda.set_sync_debug_mode("error")``, bitwise equal to phase 4;
    with two or more cards also one shard per card (``devices=None``).
    Each run's p50 window ms and requests/s beside phase 4's local ones
-   are printed and kept under ``"mesh"``.
+   are printed and kept under ``"mesh"``;
+9. LM serving at full width: recurrentgemma-2b (``get_config``, bf16,
+   weights drawn on the card from ``torch.Generator("cuda")`` seeded 0)
+   served by ``ServeEngine(batch_slots=4, cache_len=4096)``: 8 greedy
+   requests of 256-3000 prompt tokens (numpy seed 0; the longer ones wrap
+   the 2048-slot rings of the local-attention layers), 32 tokens each.
+   Every request must finish with 32 tokens (or end on EOS); for the
+   longest and the shortest prompt, the served logits of prefill and 16
+   decode steps must agree with the teacher-forced ``forward`` over the
+   same tokens within the bfloat16 tolerance of ``_bf16_tol``; the engine
+   with ``sd_decode_frac=1.0``, teacher-forced to the plain run's tokens,
+   must agree with it call for call within that tolerance, its own token
+   equal to the plain one wherever the plain top-2 margin exceeds twice
+   the tolerance; the float32 smoke config must give the same logits on
+   the card and on the CPU over a prefill and 8 decode steps within
+   1e-4 (TF32 off); and the LM path must launch none of the port's eight
+   kernels (counts set to 0 before the phase and read after it).  The
+   parameter count, peak device memory, prefill tokens/s, the p50
+   batched decode step and decode tokens/s beside the step's HBM bound,
+   one traced step's device busy share and kernels, and
+   ``sd_decode_frac=0.25``'s p50 step, weight bytes per layer and token
+   and largest logit drift are printed and kept under ``"lm_serve"``.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -2304,6 +2325,322 @@ def phase_mesh(spec, qn, dev, smi: str, main_path: dict) -> dict:
             "launches": mesh_launches, "wall_s": wall, "card": smi}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: LM serving at full width (recurrentgemma-2b)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "recurrentgemma-2b"
+LM_SLOTS, LM_CACHE = 4, 4096
+LM_REQUESTS, LM_TOKENS = 8, 32
+LM_PROMPT_LENS = (256, 3000)   # numpy seed 0 draws each prompt's length
+LM_FORCED = 16                 # decode steps held to the teacher-forced forward
+LM_SD_FRAC = 0.25
+LM_F32_ATOL = 1e-4             # float32 card vs CPU, TF32 off
+
+
+def _bf16_tol(want, n_layers: int) -> float:
+    """Two bfloat16 runs of one L-layer model that round in other places
+    (GEMMs of other shapes, blockwise vs single-row attention, scan vs
+    step) drift apart like a random walk over the 2L residual adds: four
+    standard deviations of a 2^-8 relative rounding over 2L steps, at the
+    logits' scale (the rule of tests/test_torch_lm.py's bf16 case)."""
+    import numpy as np
+    return 4 * 2.0 ** -8 * (2 * n_layers) ** 0.5 * max(
+        1.0, float(np.abs(want).max()))
+
+
+class _Recorder:
+    """Records every sampling call of a ``ServeEngine``: the request it
+    serves, its logits (host float32) and the engine's own choice, and
+    times each ``step`` (host wall, which ends in the step's one device
+    read) and each prefill (synchronised).  With ``forced`` ({uid: tokens})
+    the engine takes those tokens instead of its own (teacher forcing)."""
+
+    def __init__(self, eng, forced=None):
+        import numpy as np
+        import torch
+        self.calls, self.step_s, self.prefill = [], [], []
+        own_sample, own_admit = eng._sample, eng.try_admit
+        own_step, own_prefill = eng.step, eng._prefill
+        ctx = []
+
+        def sample(logits):
+            uid = ctx.pop(0)
+            choice = own_sample(logits)
+            n = len(self.by_uid(uid))
+            self.calls.append((uid, logits.copy(), choice))
+            return int(forced[uid][n]) if forced else choice
+
+        def try_admit(req):
+            ctx[:] = [req.uid]
+            return own_admit(req)
+
+        def step():
+            ctx[:] = [eng.slot_req[s].uid for s in np.nonzero(eng.active)[0]]
+            t0 = time.perf_counter()
+            n = own_step()
+            if n:
+                self.step_s.append((time.perf_counter() - t0, n))
+            return n
+
+        def prefill(tokens):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = own_prefill(tokens)
+            torch.cuda.synchronize()
+            self.prefill.append((time.perf_counter() - t0, tokens.shape[1]))
+            return out
+
+        eng._sample, eng.try_admit = sample, try_admit
+        eng.step, eng._prefill = step, prefill
+
+    def by_uid(self, uid):
+        return [(lg, c) for u, lg, c in self.calls if u == uid]
+
+    def p50_step_ms(self) -> float:
+        import numpy as np
+        return 1e3 * float(np.median([s for s, _ in self.step_s]))
+
+
+def _lm_requests(cfg):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT_LENS[0], LM_PROMPT_LENS[1] + 1,
+                        size=LM_REQUESTS)
+    return [Request(i, rng.integers(2, cfg.vocab_size, size=int(n)),
+                    LM_TOKENS) for i, n in enumerate(lens)]
+
+
+def _lm_serve(cfg, params, dev, forced=None):
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, params, batch_slots=LM_SLOTS, cache_len=LM_CACHE,
+                      device=dev)
+    rec = _Recorder(eng, forced)
+    reqs = _lm_requests(cfg)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    return eng, rec, reqs, time.perf_counter() - t0
+
+
+def _lm_against(rec, plain, n_layers: int, what: str) -> dict:
+    """A teacher-forced run's logits against the plain run's, call for
+    call: the largest difference, the bf16 tolerance, and how many of the
+    run's own tokens equal the plain ones (all wherever the plain top-2
+    margin exceeds twice the tolerance)."""
+    import numpy as np
+    worst, same, flips_allowed = 0.0, 0, 0
+    if [c[0] for c in rec.calls] != [c[0] for c in plain.calls]:
+        raise AssertionError(f"{what}: the sampling calls differ")
+    for (_, lg, mine), (_, plg, theirs) in zip(rec.calls, plain.calls):
+        tol = _bf16_tol(plg, n_layers)
+        diff = float(np.abs(lg - plg).max())
+        worst = max(worst, diff / tol)
+        top = np.sort(plg)[-2:]
+        if mine == theirs:
+            same += 1
+        elif top[1] - top[0] > 2 * tol:
+            raise AssertionError(f"{what}: token {mine} != {theirs} with a "
+                                 f"margin {top[1] - top[0]:.4f} > 2 x tol")
+        else:
+            flips_allowed += 1
+    return {"worst_diff_over_tol": worst, "same_tokens": same,
+            "calls": len(rec.calls), "near_tie_flips": flips_allowed}
+
+
+def _lm_card_vs_cpu(dev) -> float:
+    """The float32 smoke config from the same weights on the card and on
+    the CPU (TF32 off): prefill and 8 decode steps; the largest logit
+    difference."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_map
+    cfg = get_smoke(LM_ARCH)
+    p = T.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 28)))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for d, params in (("cpu", p), (dev, tree_map(lambda w: w.to(dev),
+                                                     p))):
+            t = toks.to(d)
+            lg, cache, _ = T.prefill(params, cfg, t[:, :20], cache_len=32)
+            rows = [lg]
+            for i in range(20, 28):
+                lg, cache, _ = T.decode_step(params, cfg, cache,
+                                             t[:, i:i + 1], i)
+                rows.append(lg)
+            out[str(d)] = torch.cat(rows, 1).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return float((out["cpu"] - out[str(dev)]).abs().max())
+
+
+def phase_lm(dev, smi: str) -> dict:
+    """Phase 9 (see the module docstring): full-width recurrentgemma-2b
+    served by ``ServeEngine`` in bfloat16."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core.sd_decode import read_bytes_per_layer
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    cfg = get_config(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+    n_params = T.param_count(cfg)
+    weight_bytes = sum(w.numel() * w.element_size()
+                       for _, w in tree_leaves(params))
+    log(f"  {LM_ARCH}: {n_params} parameters, {weight_bytes / 1e9:.3f} GB "
+        f"of {cfg.dtype} weights, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model} [{smi}]")
+    # warm the GEMM and allocator paths on a short request (not measured)
+    warm = ServeEngine(cfg, params, batch_slots=LM_SLOTS, cache_len=LM_CACHE,
+                       device=dev)
+    warm.run([Request(-1, np.arange(2, 2 + LM_PROMPT_LENS[0]), 4)])
+
+    eng, plain, reqs, wall = _lm_serve(cfg, params, dev)
+    for r in reqs:
+        n = len(r.out_tokens)
+        if not r.done or (n != LM_TOKENS and r.out_tokens[-1] != eng.eos):
+            raise AssertionError(f"phase 9: request {r.uid} ended with {n} "
+                                 f"tokens, done={r.done}")
+    tokens = {r.uid: r.out_tokens for r in reqs}
+    pre_s = sum(s for s, _ in plain.prefill)
+    pre_tok = sum(n for _, n in plain.prefill)
+    dec_s = sum(s for s, _ in plain.step_s)
+    dec_tok = sum(n for _, n in plain.step_s)
+    p50 = plain.p50_step_ms()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_leaves(eng.cache))
+    bound_ms = 1e3 * (weight_bytes + cache_bytes) / HBM_BYTES_PER_S
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  served {len(reqs)} requests ({[len(r.prompt) for r in reqs]} "
+        f"prompt tokens) on {LM_SLOTS} slots, cache {LM_CACHE}: "
+        f"{eng.stats}, wall {wall:.2f} s [{smi}]")
+    log(f"  prefill {pre_tok} tokens in {pre_s:.3f} s: "
+        f"{pre_tok / pre_s:.1f} tokens/s [{smi}]")
+    log(f"  decode: {len(plain.step_s)} batched steps, p50 {p50:.3f} ms, "
+        f"{dec_tok / dec_s:.1f} tokens/s; bound {bound_ms:.3f} ms "
+        f"({(weight_bytes + cache_bytes) / 1e9:.3f} GB of weights and "
+        f"caches at 3.35 TB/s), p50 / bound {p50 / bound_ms:.2f}x; peak "
+        f"device memory {peak / 2**30:.2f} GiB [{smi}]")
+
+    # decode == teacher-forced forward, for the longest and the shortest
+    order = sorted(reqs, key=lambda r: len(r.prompt))
+    forward_check = []
+    for r in (order[-1], order[0]):
+        P = len(r.prompt)
+        toks = np.concatenate([r.prompt, tokens[r.uid][:LM_FORCED]])
+        x, _ = T.forward(params, cfg, torch.as_tensor(toks)[None].to(dev))
+        full = T.unembed(params, cfg, x[:, P - 1:P + LM_FORCED])[
+            0, :, :cfg.vocab_size].float().cpu().numpy()
+        served = np.stack([lg for lg, _ in plain.by_uid(r.uid)[
+            :LM_FORCED + 1]])
+        diff = float(np.abs(served - full).max())
+        tol = _bf16_tol(full, cfg.n_layers)
+        log(f"  request {r.uid} (prompt {P}): prefill + {LM_FORCED} decode "
+            f"steps vs the teacher-forced forward: max |diff| {diff:.4f}, "
+            f"tolerance {tol:.4f} (logit scale "
+            f"{float(np.abs(full).max()):.3f}) [{smi}]")
+        if diff > tol:
+            raise AssertionError(f"phase 9: decode vs forward {diff} > {tol}")
+        forward_check.append({"uid": r.uid, "prompt": P, "max_diff": diff,
+                              "tol": tol})
+
+    # sigma-delta decode, teacher-forced to the plain tokens
+    sd_runs = {}
+    for frac in (1.0, LM_SD_FRAC):
+        cfg_sd = dataclasses.replace(cfg, sd_decode_frac=frac)
+        eng_sd, rec, _, wall_sd = _lm_serve(cfg_sd, params, dev, tokens)
+        if eng_sd.stats != eng.stats:
+            raise AssertionError(f"phase 9: sd {frac} stats {eng_sd.stats} "
+                                 f"!= {eng.stats}")
+        worst = max(float(np.abs(lg - plg).max()) for (_, lg, _), (
+            _, plg, _) in zip(rec.calls, plain.calls))
+        row = {"frac": frac, "p50_step_ms": rec.p50_step_ms(),
+               "max_logit_drift": worst, "wall_s": wall_sd,
+               "read_bytes_per_layer_token": read_bytes_per_layer(
+                   cfg.d_model, cfg.lru_dim, cfg.d_ff, frac),
+               "plain_read_bytes_per_layer_token": read_bytes_per_layer(
+                   cfg.d_model, cfg.lru_dim, cfg.d_ff, 1.0)}
+        if frac == 1.0:
+            row.update(_lm_against(rec, plain, cfg.n_layers,
+                                   "sd 1.0 vs plain"))
+        sd_runs[str(frac)] = row
+        log(f"  sd_decode_frac {frac}: p50 step {row['p50_step_ms']:.3f} ms "
+            f"(plain {p50:.3f}), largest logit drift vs plain "
+            f"{worst:.4f} over {len(rec.calls)} sampling calls; weight "
+            f"bytes per RG-LRU layer and token "
+            f"{row['read_bytes_per_layer_token'] / 1e6:.3f} MB against "
+            f"{row['plain_read_bytes_per_layer_token'] / 1e6:.3f} MB [{smi}]")
+    one = sd_runs["1.0"]
+    log(f"  sd 1.0 vs plain: {one['same_tokens']} of {one['calls']} tokens "
+        f"equal ({one['near_tie_flips']} near-tie flips), largest diff "
+        f"{one['worst_diff_over_tol']:.3f} x the bf16 tolerance [{smi}]")
+    if one["worst_diff_over_tol"] > 1.0:
+        raise AssertionError("phase 9: sd 1.0 logits outside the bf16 "
+                             "tolerance of the plain decode")
+
+    # one traced batched step with every slot busy
+    eng_t = ServeEngine(cfg, params, batch_slots=LM_SLOTS,
+                        cache_len=LM_CACHE, device=dev)
+    for r in _lm_requests(cfg)[:LM_SLOTS]:
+        eng_t.try_admit(r)
+    for _ in range(2):
+        eng_t.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng_t.step()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    trace = _device_summary(prof, traced_wall, "LM decode step (4 slots)",
+                            smi)
+
+    card_cpu = _lm_card_vs_cpu(dev)
+    log(f"  smoke {LM_ARCH} float32, TF32 off: card vs CPU max |diff| "
+        f"{card_cpu:.2e} over prefill + 8 decode steps (tolerance "
+        f"{LM_F32_ATOL}) [{smi}]")
+    if card_cpu > LM_F32_ATOL:
+        raise AssertionError(f"phase 9: card vs CPU {card_cpu}")
+    stray = {k: v for k, v in LAUNCHES.items() if v}
+    if stray:
+        raise AssertionError(f"phase 9: the LM path launched port kernels "
+                             f"{stray}")
+    log("  the LM path launched none of the port's eight kernels (counts "
+        "set to 0 before the phase, read after)")
+    wall_phase = time.perf_counter() - t_phase
+    log(f"  phase 9 wall {wall_phase:.1f} s [{smi}]")
+    return {"arch": LM_ARCH, "dtype": cfg.dtype, "params": n_params,
+            "weight_bytes": weight_bytes, "cache_bytes": cache_bytes,
+            "slots": LM_SLOTS, "cache_len": LM_CACHE,
+            "prompt_lens": [len(r.prompt) for r in reqs],
+            "stats": eng.stats, "wall_s": wall,
+            "prefill_tokens_per_s": pre_tok / pre_s,
+            "decode_steps": len(plain.step_s), "p50_step_ms": p50,
+            "step_ms": [1e3 * s for s, _ in plain.step_s],
+            "decode_tokens_per_s": dec_tok / dec_s,
+            "bound_ms": bound_ms, "p50_over_bound": p50 / bound_ms,
+            "peak_device_memory_bytes": peak,
+            "forward_check": forward_check, "sd": sd_runs,
+            "trace": trace, "card_vs_cpu_max_diff": card_cpu,
+            "phase_wall_s": wall_phase, "card": smi}
+
+
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
     the window kernels and the megakernel with the sparse bitmaps the main
@@ -2401,6 +2738,9 @@ def main() -> int:
         "network")
     mesh = phase_mesh(spec, qn, dev, smi, main_path)
 
+    log("phase 9: LM serving, full-width recurrentgemma-2b on ServeEngine")
+    lm_serve = phase_lm(dev, smi)
+
     # a kernel of no serving path reports its count summed over every
     # lowering's run (phase 4 holds it at 0); the per-step scatters add the
     # event path's launches to the per-step lowering's, and every serving
@@ -2417,14 +2757,14 @@ def main() -> int:
                    main_path["peak_device_memory_bytes"],
                "trace": main_path["trace"], "streaming": streaming,
                "training": training, "event_path": event_path,
-               "mesh": mesh, "build_s": secs,
+               "mesh": mesh, "lm_serve": lm_serve, "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, **summary}, f, indent=1)
     log(json.dumps({k: v for k, v in summary.items()
                     if k not in ("trace", "streaming", "training",
-                                 "event_path", "mesh")}))
+                                 "event_path", "mesh", "lm_serve")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

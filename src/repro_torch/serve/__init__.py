@@ -2,6 +2,7 @@
 
     from repro_torch.serve import (EventRequest, EventServeEngine,
                                    StreamingRuntime, ExecutionPolicy)
+    from repro_torch.serve import Request, ServeEngine   # LM serving
 
 Module layout behind the facade:
 
@@ -11,10 +12,13 @@ Module layout behind the facade:
     backend over several devices;
   * `repro_torch.serve.runtime`      — streaming runtime (admission, SLOs,
     load generation, clocks, metrics);
-  * `repro_torch.serve.telemetry`    — per-request energy/event telemetry.
+  * `repro_torch.serve.telemetry`    — per-request energy/event telemetry;
+  * `repro_torch.serve.engine`       — the LM engine: slot-batched
+    continuous batching over the decoder stack's caches.
 """
 from repro_torch.core.layer_program import default_step_capacities
 from repro_torch.core.policies import ExecutionPolicy, all_policies
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.event_engine import (EventRequest, EventServeEngine,
                                             event_bucket, event_bucket_ladder)
 from repro_torch.serve.mesh_engine import MeshEventServeEngine
@@ -39,4 +43,6 @@ __all__ = [
     # telemetry
     "RequestTelemetry", "request_telemetry", "summarize",
     "proportionality_r2",
+    # LM serving
+    "Request", "ServeEngine",
 ]

@@ -8,10 +8,17 @@ single-file ``.npz`` artifact both trainers use (``format_version``,
 ``n_layers``, ``w0..wN`` float32, ``meta_<key>``), so a net trained by
 either package is served by the other.  Every shape is validated against
 the spec's own layouts.
+
+For the LM substrate, :func:`lm_params_from_numpy` and
+:func:`lm_cache_from_numpy` take the reference's parameter and decode
+cache trees as numpy (nested dicts whose per-layer leaves are stacked by
+scan group, ``groups/g{i}/l{j}``) and unstack them into the port's
+one-entry-per-layer trees, each leaf checked against the port's own
+declarations.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +26,9 @@ import torch
 from repro_torch.core.econv import EConvParams
 from repro_torch.core.sne_net import SNNSpec
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import tree_leaves
 
 NET_FORMAT_VERSION = 1
 
@@ -75,3 +85,75 @@ def load_net(path: str, spec: SNNSpec, device=None
         meta = {k[len("meta_"):]: z[k][()] for k in z.files
                 if k.startswith("meta_")}
     return params_from_numpy(arrays, spec, device), meta
+
+
+# ---------------------------------------------------------------------------
+# LM parameter and cache trees
+# ---------------------------------------------------------------------------
+
+
+def _unstack_groups(groups: Dict[str, Any], cfg: ModelConfig) -> List[Any]:
+    """The reference's scan-group stacks (``g{i}/l{j}``, each leaf with a
+    leading repeat axis) as one subtree per layer, in layer order."""
+    layers = []
+    for i, (specs, count) in enumerate(cfg.scan_groups()):
+        g = groups[f"g{i}"]
+        for r in range(count):
+            for j in range(len(specs)):
+                layers.append(_map_np(lambda a, r=r: a[r], g[f"l{j}"]))
+    return layers
+
+
+def _map_np(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_np(fn, v) for k, v in tree.items()}
+    return fn(np.asarray(tree))
+
+
+def _from_decls(tree: Any, decls: Any, dev: torch.device,
+                path: Tuple = ()) -> Any:
+    """``tree`` (numpy leaves) as tensors on ``dev`` in the dtypes of
+    ``decls``, its keys and every shape checked against them."""
+    where = "/".join(map(str, path)) or "tree"
+    if isinstance(decls, dict):
+        if not isinstance(tree, dict) or set(tree) != set(decls):
+            got = set(tree) if isinstance(tree, dict) else set()
+            raise ValueError(f"{where}: missing {sorted(set(decls) - got)}, "
+                             f"unexpected {sorted(got - set(decls))}")
+        return {k: _from_decls(tree[k], d, dev, path + (k,))
+                for k, d in decls.items()}
+    if isinstance(decls, list):
+        if len(tree) != len(decls):
+            raise ValueError(f"{where}: {len(tree)} entries, declared "
+                             f"{len(decls)}")
+        return [_from_decls(t, d, dev, path + (i,))
+                for i, (t, d) in enumerate(zip(tree, decls))]
+    a = np.asarray(tree)
+    if tuple(a.shape) != tuple(decls.shape):
+        raise ValueError(f"{where}: shape {tuple(a.shape)} != declared "
+                         f"{decls.shape}")
+    # bfloat16 arrays (ml_dtypes) go through float32, exactly
+    return torch.from_numpy(np.array(a, np.float32)).to(device=dev,
+                                                        dtype=decls.dtype)
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                         device=None) -> Dict[str, Any]:
+    """The reference's LM parameter tree (numpy leaves) as the port's
+    parameters on ``device`` (default: the CUDA device), in
+    ``cfg.tdtype``."""
+    dev = resolve_device(device)
+    flat = {k: v for k, v in tree.items() if k != "groups"}
+    flat["layers"] = _unstack_groups(tree["groups"], cfg)
+    return _from_decls(flat, T.model_decls(cfg), dev)
+
+
+def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                        cache_len: int, device=None) -> T.Cache:
+    """The reference's decode cache (``groups/g{i}/l{j}``, numpy leaves)
+    for ``cache_len`` positions as the port's per-layer cache on
+    ``device`` (default: the CUDA device)."""
+    dev = resolve_device(device)
+    layers = _unstack_groups(tree, cfg)
+    B = next(a for _, a in tree_leaves(layers)).shape[0]
+    return _from_decls(layers, T.cache_decls(cfg, B, cache_len), dev)

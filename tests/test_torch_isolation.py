@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke
 from repro_torch.core import events as ev
 from repro_torch.core.econv import event_forward
 from repro_torch.core.layer_program import compile_program
@@ -20,10 +21,13 @@ from repro_torch.core.policies import ExecutionPolicy
 from repro_torch.core.sne_net import (default_capacities, event_apply,
                                       event_predict, init_snn, tiny_net)
 from repro_torch.data.events_ds import TINY, batch_at, sample_recording_path
-from repro_torch.serve import EventServeEngine
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models.transformer import init_model
+from repro_torch.serve import EventServeEngine, ServeEngine
 from repro_torch.train.snn_loop import (TrainConfig, evaluate, fit,
                                         load_trained_tiny)
-from repro_torch.weights import load_net, params_from_numpy
+from repro_torch.weights import (lm_params_from_numpy, load_net,
+                                 params_from_numpy)
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -60,6 +64,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/train/checkpoint.py",
             "src/repro_torch/train/fault.py",
             "src/repro_torch/train/snn_loop.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/recurrent.py",
+            "src/repro_torch/core/sd_decode.py",
+            "src/repro_torch/core/lm_events.py",
+            "src/repro_torch/serve/engine.py",
+            "src/repro_torch/launch/serve.py",
             "chip_smoke.py"} <= scanned
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in PORT_FILES}
@@ -86,12 +97,16 @@ def no_cuda():
                                    "load_net", "params_from_numpy",
                                    "init_snn", "fit", "evaluate", "batch_at",
                                    "load_trained_tiny", "event_forward",
-                                   "event_apply", "event_predict"])
+                                   "event_apply", "event_predict",
+                                   "lm_engine", "init_model",
+                                   "lm_params_from_numpy", "launch_serve"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
     stream = ev.dense_to_events(torch.zeros((16, 12, 12, 2)), 8)
     caps = default_capacities(spec)
+    lm_cfg = get_smoke("recurrentgemma-2b")
+    lm_params = init_model(torch.Generator(), lm_cfg, device="cpu")
     calls = {
         "compile_program": lambda: compile_program(spec),
         "compile_fused": lambda: compile_program(
@@ -120,6 +135,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
                                                stream, 16, 16),
         "event_apply": lambda: event_apply(params, spec, stream, caps),
         "event_predict": lambda: event_predict(params, spec, stream, caps),
+        "lm_engine": lambda: ServeEngine(lm_cfg, lm_params, batch_slots=2,
+                                         cache_len=16),
+        "init_model": lambda: init_model(torch.Generator(), lm_cfg),
+        # the device is resolved before the tree is read
+        "lm_params_from_numpy": lambda: lm_params_from_numpy({}, lm_cfg),
+        "launch_serve": lambda: launch_serve.main(
+            ["--arch", "recurrentgemma-2b", "--requests", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
