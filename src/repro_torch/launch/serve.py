@@ -2,7 +2,8 @@
 
 Runs the slot-batched continuous-batching engine on the arch's reduced
 (smoke) config with seeded random weights and synthetic prompts, and
-prints one summary line.  ``--device`` picks the device (default: the
+prints one summary line.  ``--arch`` takes every arch the engine serves:
+all but the encoder and frontend configs (whisper-medium, internvl2-26b).  ``--device`` picks the device (default: the
 CUDA device; ``--device cpu`` runs the plain PyTorch path on the CPU).
 """
 from __future__ import annotations

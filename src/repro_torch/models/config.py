@@ -3,9 +3,9 @@ of ``repro.models.config``).
 
 One :class:`ModelConfig` describes any of the ten assigned architectures;
 every field of the reference's is kept, so a reference config maps over
-one to one.  The port runs the layer kinds ``ATTN_GLOBAL``,
-``ATTN_LOCAL``, ``RGLRU`` and ``FFN_DENSE``; the others are declared so
-that configs stay comparable, and the model code refuses them.
+one to one.  The port runs every layer kind; of the execution knobs it
+refuses ``moe_impl="shardmap"`` and ``causal_fold`` (ROADMAP Queue A,
+LM substrate item 6).
 
 The reference groups layers into scan runs (``runs``, ``scan_groups``);
 the port keeps both because its weight converter unstacks the reference's

@@ -131,6 +131,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
+def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings of the positions
+    ``pos`` (N,) as (N, d) float32: the sines of all ``d // 2``
+    frequencies, then their cosines (concatenated, not interleaved)."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float()[:, None] / (10000.0 ** (2 * dim[None, :] / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """:func:`sinusoidal_at` of positions ``0 .. n-1``: (n, d) float32."""
+    return sinusoidal_at(torch.arange(n, device=device), d)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, act: str) -> torch.Tensor:
     """Gated FFN: ``act(x @ Wg) * (x @ Wu) @ Wd`` in ``x``'s dtype."""

@@ -1,27 +1,35 @@
-"""The decoder stack's serving path, counterpart of the serving parts of
-``repro.models.transformer``.
+"""The decoder (and encoder-decoder) stack's serving path, counterpart of
+the serving parts of ``repro.models.transformer``.
 
 Three entry points:
 
-  * :func:`forward`     — full-sequence forward (hidden states, and the
-                          per-layer contributions to the decode caches);
+  * :func:`forward`     — full-sequence forward: hidden states, the MoE
+                          stats, and the per-layer contributions to the
+                          decode caches;
   * :func:`prefill`     — runs a prompt, fills the decode caches and
                           returns the last token's logits;
   * :func:`decode_step` — one token for every cache row, each row at its
                           own position (continuous batching).
 
-Layer kinds: global and sliding-window (local) attention with RoPE and
-GQA, the RG-LRU block, and the dense gated FFN; with
+Layer kinds: global, sliding-window (local) and bidirectional attention
+with RoPE or sinusoidal positions and GQA, cross attention to an encoder
+output, the RG-LRU block, the mLSTM and sLSTM blocks (``models/xlstm.py``),
+the dense gated FFN and the MoE FFN (``models/moe.py``), or no FFN.  The
+audio stub feeds a bidirectional encoder (``frames=``); the vision stub
+overwrites the first prompt positions (``patches=``).  With
 ``cfg.sd_decode_frac > 0`` the RG-LRU layers decode through sigma-delta
-event-gated matvecs (``core/sd_decode.py``).  MoE, mLSTM / sLSTM, cross
-attention, the encoder, the modality frontends and int8 weights are not
-ported (ROADMAP Queue A) and are refused.
+event-gated matvecs (``core/sd_decode.py``).  Int8 weight storage
+(``cfg.weight_quant``) is ``models/quant_lm.py``'s: dequantise the tree,
+then call these functions, as the reference does.  Refused (ROADMAP
+Queue A, LM substrate item 6): ``moe_impl="shardmap"`` here and
+``causal_fold`` in ``flash_attention``.
 
 Parameters and caches hold one entry per layer (``params["layers"][i]``,
-``cache[i]``), where the reference stacks scan groups;
-``repro_torch.weights.lm_params_from_numpy`` unstacks the reference's.
-A local-attention layer's cache is a ring of ``min(S, window)`` slots,
-token ``t`` in slot ``t % window``.
+``cache[i]``; the encoder's ``params["encoder"]["layers"][i]``), where
+the reference stacks scan groups; ``repro_torch.weights.
+lm_params_from_numpy`` unstacks the reference's.  A local-attention
+layer's cache is a ring of ``min(S, window)`` slots, token ``t`` in slot
+``t % window``.
 """
 from __future__ import annotations
 
@@ -36,44 +44,32 @@ from repro_torch.device import resolve_device
 from repro_torch.models import config as C
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.config import LayerSpec, ModelConfig
+from repro_torch.models.frontend import apply_frontend, frontend_decls
 from repro_torch.models.layers import (DeclTree, ParamDecl, ParamTree,
                                        count_params, ffn_apply, ffn_decls,
-                                       init_tree, rms_norm, rope, tree_map)
+                                       init_tree, rms_norm, rope,
+                                       sinusoidal_at, sinusoidal_positions,
+                                       tree_map)
+from repro_torch.models.moe import MoeStats, moe_apply, moe_decls, zero_stats
 from repro_torch.models.recurrent import (rglru_block, rglru_block_step,
                                           rglru_decls)
+from repro_torch.models.xlstm import (mlstm_block, mlstm_block_step,
+                                      mlstm_decls, slstm_block,
+                                      slstm_block_step, slstm_decls)
 
 Cache = List[Dict[str, Any]]
 
 _ATTN = (C.ATTN_GLOBAL, C.ATTN_LOCAL)
+_ENC_SPEC = LayerSpec(C.ATTN_BIDIR, C.FFN_DENSE)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Refuse what the port has not ported, naming the ROADMAP item."""
-    item = "ROADMAP Queue A, LM substrate item"
-    for spec in cfg.layers:
-        if spec.mixer in (C.MLSTM, C.SLSTM):
-            raise NotImplementedError(f"{cfg.name}: xLSTM blocks are not "
-                                      f"ported ({item} 3)")
-        if spec.mixer not in _ATTN + (C.RGLRU,):
-            raise NotImplementedError(f"{cfg.name}: mixer {spec.mixer!r} "
-                                      f"is not ported ({item} 4)")
-        if spec.ffn == C.FFN_MOE:
-            raise NotImplementedError(f"{cfg.name}: MoE layers are not "
-                                      f"ported ({item} 2)")
-        if spec.ffn != C.FFN_DENSE:
-            raise NotImplementedError(f"{cfg.name}: ffn {spec.ffn!r} is "
-                                      f"not ported ({item} 3)")
-        if spec.cross_attn:
-            raise NotImplementedError(f"{cfg.name}: cross attention is not "
-                                      f"ported ({item} 4)")
-    if cfg.encoder is not None or cfg.frontend is not None \
-            or cfg.pos_emb != "rope":
-        raise NotImplementedError(f"{cfg.name}: the encoder and frontends "
-                                  f"are not ported ({item} 4)")
-    if cfg.weight_quant != "none":
-        raise NotImplementedError(f"{cfg.name}: weight_quant="
-                                  f"{cfg.weight_quant!r} is not ported "
-                                  f"({item} 1)")
+    if cfg.moe_impl == "shardmap":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl='shardmap' (the expert-parallel "
+            f"all-to-all dispatch) is not ported (ROADMAP Queue A, LM "
+            f"substrate item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -98,12 +94,28 @@ def attn_decls(cfg: ModelConfig) -> DeclTree:
 def layer_decls(cfg: ModelConfig, spec: LayerSpec) -> DeclTree:
     d = cfg.d_model
     out: DeclTree = {"norm": ParamDecl((d,), init="zeros")}
-    if spec.mixer in _ATTN:
+    if spec.mixer in _ATTN + (C.ATTN_BIDIR,):
         out["attn"] = attn_decls(cfg)
-    else:
+    elif spec.mixer == C.RGLRU:
         out["rglru"] = rglru_decls(d, cfg.lru_dim, cfg.conv1d_width)
-    out["ffn_norm"] = ParamDecl((d,), init="zeros")
-    out["ffn"] = ffn_decls(d, cfg.d_ff)
+    elif spec.mixer == C.MLSTM:
+        out["mlstm"] = mlstm_decls(d, cfg.n_heads)
+    elif spec.mixer == C.SLSTM:
+        out["slstm"] = slstm_decls(d, cfg.n_heads)
+    else:
+        raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
+    if spec.cross_attn:
+        out["cross_norm"] = ParamDecl((d,), init="zeros")
+        out["cross"] = attn_decls(cfg)
+    if spec.ffn == C.FFN_DENSE:
+        out["ffn_norm"] = ParamDecl((d,), init="zeros")
+        out["ffn"] = ffn_decls(d, cfg.d_ff)
+    elif spec.ffn == C.FFN_MOE:
+        out["ffn_norm"] = ParamDecl((d,), init="zeros")
+        out["moe"] = moe_decls(d, cfg.n_experts, cfg.expert_ff,
+                               cfg.shared_expert, cfg.d_ff)
+    elif spec.ffn != C.FFN_NONE:
+        raise ValueError(f"{cfg.name}: unknown ffn {spec.ffn!r}")
     # every leaf in the model's dtype, as in the reference
     return _with_dtype(out, cfg.tdtype)
 
@@ -117,6 +129,15 @@ def model_decls(cfg: ModelConfig) -> DeclTree:
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = ParamDecl((cfg.d_model, cfg.vocab_padded))
+    if cfg.encoder is not None:
+        out["encoder"] = {
+            "layers": [layer_decls(cfg, _ENC_SPEC)
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": ParamDecl((cfg.d_model,), init="zeros"),
+        }
+    fe = frontend_decls(cfg)
+    if fe is not None:
+        out["frontend"] = fe
     return _with_dtype(out, cfg.tdtype)
 
 
@@ -131,64 +152,169 @@ def param_count(cfg: ModelConfig) -> int:
     return count_params(model_decls(cfg))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k of n_experts)."""
+    total = param_count(cfg)
+    if cfg.n_experts == 0:
+        return total
+    expert = 3 * cfg.d_model * cfg.expert_ff
+    n_moe = sum(1 for l in cfg.layers if l.ffn == C.FFN_MOE)
+    return total - n_moe * (cfg.n_experts - cfg.top_k) * expert
+
+
 # ---------------------------------------------------------------------------
 # Full sequence (prefill)
 # ---------------------------------------------------------------------------
 
 
 def _attention(p: ParamTree, cfg: ModelConfig, mixer: str, x: torch.Tensor,
-               positions: torch.Tensor):
-    """Full-sequence causal attention. Returns (out, (k, v))."""
+               positions: torch.Tensor,
+               kv_src: Optional[torch.Tensor] = None):
+    """Full-sequence attention; ``kv_src`` (B, Skv, d) makes it cross
+    attention (no positions, not causal). Returns (out, (k, v))."""
     B, S, _ = x.shape
     H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
+    src = x if kv_src is None else kv_src
+    Skv = src.shape[1]
     q = (x @ p["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, Hk, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, Hk, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = (src @ p["wk"].to(dt)).reshape(B, Skv, Hk, hd)
+    v = (src @ p["wv"].to(dt)).reshape(B, Skv, Hk, hd)
+    if cfg.pos_emb == "rope" and kv_src is None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     o = flash_attention(
-        q, k, v, causal=True,
+        q, k, v, causal=mixer in _ATTN and kv_src is None,
         window=cfg.window if mixer == C.ATTN_LOCAL else 0,
         chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
         fold=cfg.causal_fold)
     return o.reshape(B, S, H * hd) @ p["wo"].to(dt), (k, v)
 
 
+def _moe(p: ParamTree, cfg: ModelConfig, h: torch.Tensor):
+    return moe_apply(p, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                     capacity_factor=cfg.capacity_factor, act=cfg.act,
+                     shared=cfg.shared_expert)
+
+
 def _layer_forward(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
                    x: torch.Tensor, positions: torch.Tensor,
+                   enc_out: Optional[torch.Tensor] = None,
                    want_cache: bool = False):
-    """One layer, full sequence. Returns (x, cache_contrib)."""
+    """One layer, full sequence. Returns (x, stats, cache_contrib)."""
+    stats = zero_stats(x.device)
     cache: Dict[str, Any] = {}
     h = rms_norm(x, p["norm"], cfg.norm_eps)
-    if spec.mixer in _ATTN:
+    if spec.mixer in _ATTN + (C.ATTN_BIDIR,):
         o, (k, v) = _attention(p["attn"], cfg, spec.mixer, h, positions)
         if want_cache:
             cache["k"], cache["v"] = k, v
     else:
-        o, st = rglru_block(p["rglru"], h, cfg.act)
+        if spec.mixer == C.RGLRU:
+            o, st = rglru_block(p["rglru"], h, cfg.act)
+        elif spec.mixer == C.MLSTM:
+            o, st = mlstm_block(p["mlstm"], h, cfg.n_heads)
+        else:
+            o, st = slstm_block(p["slstm"], h, cfg.n_heads)
         if want_cache:
-            cache["rglru"] = st
+            cache[spec.mixer] = st      # keyed by the mixer's name
     x = x + o
-    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], h, cfg.act), cache
+    if spec.cross_attn:
+        hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        o, (ck, cv) = _attention(p["cross"], cfg, C.ATTN_BIDIR, hc,
+                                 positions, kv_src=enc_out)
+        if want_cache:
+            cache["cross_k"], cache["cross_v"] = ck, cv
+        x = x + o
+    if spec.ffn == C.FFN_DENSE:
+        h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        x = x + ffn_apply(p["ffn"], h, cfg.act)
+    elif spec.ffn == C.FFN_MOE:
+        h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        o, stats = _moe(p["moe"], cfg, h)
+        x = x + o
+    return x, stats, cache
+
+
+def _group_stats(cfg: ModelConfig, layer_stats: List[MoeStats]) -> MoeStats:
+    """The reference's reduction of per-layer stats over its scan groups:
+    a cycle sums ``aux_loss`` and averages ``dropped_frac`` over its layers
+    (the zeros of non-MoE layers included), a group sums and averages over
+    its cycles, and the model sums and averages over its groups."""
+    groups, i = [], 0
+    for specs, count in cfg.scan_groups():
+        aux, drop = [], []
+        for _ in range(count):
+            sts = layer_stats[i:i + len(specs)]
+            i += len(specs)
+            aux.append(sum(s.aux_loss for s in sts))
+            drop.append(sum(s.dropped_frac for s in sts) / len(sts))
+        groups.append(MoeStats(aux_loss=torch.stack(aux).sum(),
+                               dropped_frac=torch.stack(drop).mean()))
+    return MoeStats(
+        aux_loss=sum(s.aux_loss for s in groups),
+        dropped_frac=sum(s.dropped_frac for s in groups) / len(groups))
+
+
+def _encoder_forward(params: ParamTree, cfg: ModelConfig,
+                     frames: torch.Tensor) -> torch.Tensor:
+    """The whisper-style encoder over stub frame features (B, F, d_in)."""
+    enc = params["encoder"]
+    x = apply_frontend(params["frontend"], cfg, frames)
+    Sf = x.shape[1]
+    x = x + sinusoidal_positions(Sf, cfg.d_model, x.device).to(x.dtype)[None]
+    pos = torch.arange(Sf, device=x.device)
+    for p in enc["layers"]:
+        x, _, _ = _layer_forward(p, cfg, _ENC_SPEC, x, pos)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def forward(params: ParamTree, cfg: ModelConfig, tokens: torch.Tensor,
-            want_cache: bool = False) -> Tuple[torch.Tensor, Cache]:
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
+            want_cache: bool = False) -> Tuple[torch.Tensor, MoeStats,
+                                               Cache]:
     """Full-sequence forward of (B, S) int tokens.  Returns the final-normed
-    hidden states (B, S, d) and, with ``want_cache``, each layer's cache
-    contribution (attention: ``k``/``v``; RG-LRU: its ``h``/``conv``
-    state), else empty dicts."""
+    hidden states (B, S, d), the MoE stats (zeros without MoE layers) and,
+    with ``want_cache``, each layer's cache contribution (attention:
+    ``k``/``v``; cross attention: ``cross_k``/``cross_v``; the recurrent
+    blocks: their final state), else empty dicts.
+
+    ``frames`` (B, F, d_in): the audio stub's features, encoded and
+    cross-attended to.  ``patches`` (B, n, d): the vision stub's
+    embeddings, which overwrite the first n token positions; a prompt
+    shorter than n raises ``ValueError`` (the reference builds a sequence
+    of the wrong length from it)."""
     check_supported(cfg)
     S = tokens.shape[1]
     x = params["embed"][tokens]
+    if cfg.frontend == "vision":
+        if patches is None:
+            raise ValueError(f"{cfg.name}: the vision stub needs patches=")
+        npat = patches.shape[1]
+        if S < npat:
+            raise ValueError(f"{cfg.name}: a prompt of {S} tokens is too "
+                             f"short for {npat} patches; it needs at least "
+                             f"{npat}")
+        pe = apply_frontend(params["frontend"], cfg, patches).to(x.dtype)
+        x = torch.cat([pe, x[:, npat:, :]], dim=1)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(
+            x.dtype)[None]
+    enc_out = None
+    if cfg.encoder is not None:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: the encoder needs frames=")
+        enc_out = _encoder_forward(params, cfg, frames)
     positions = torch.arange(S, device=tokens.device)
-    caches = []
+    caches, stats = [], []
     for p, spec in zip(params["layers"], cfg.layers):
-        x, c = _layer_forward(p, cfg, spec, x, positions, want_cache)
+        x, st, c = _layer_forward(p, cfg, spec, x, positions, enc_out,
+                                  want_cache)
+        stats.append(st)
         caches.append(c)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), caches
+    return (rms_norm(x, params["final_norm"], cfg.norm_eps),
+            _group_stats(cfg, stats), caches)
 
 
 def unembed(params: ParamTree, cfg: ModelConfig,
@@ -216,21 +342,37 @@ def cache_decls(cfg: ModelConfig, B: int, S: int) -> List[DeclTree]:
     """Zero-initialised declarations of every layer's decode cache for B
     rows and S positions."""
     check_supported(cfg)
-    Hk, hd, dt = cfg.n_kv_heads, cfg.hd, cfg.tdtype
+    H, Hk, hd, dt = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.tdtype
+    f32 = torch.float32
     out = []
     for spec in cfg.layers:
-        if spec.mixer in _ATTN:
+        c: DeclTree = {}
+        if spec.mixer in _ATTN + (C.ATTN_BIDIR,):
             kv = ParamDecl((B, _cache_len(cfg, spec, S), Hk, hd),
                            init="zeros", dtype=dt)
-            out.append({"k": kv, "v": kv})
-            continue
-        c = {"rglru": {
-            "h": ParamDecl((B, cfg.lru_dim), init="zeros",
-                           dtype=torch.float32),
-            "conv": ParamDecl((B, cfg.conv1d_width - 1, cfg.lru_dim),
-                              init="zeros", dtype=dt)}}
-        if cfg.sd_decode_frac > 0:
-            c["sd"] = sd_state_decls(B, cfg.d_model, cfg.lru_dim, cfg.d_ff)
+            c["k"], c["v"] = kv, kv
+        elif spec.mixer == C.RGLRU:
+            c["rglru"] = {
+                "h": ParamDecl((B, cfg.lru_dim), init="zeros", dtype=f32),
+                "conv": ParamDecl((B, cfg.conv1d_width - 1, cfg.lru_dim),
+                                  init="zeros", dtype=dt)}
+            if cfg.sd_decode_frac > 0:
+                c["sd"] = sd_state_decls(B, cfg.d_model, cfg.lru_dim,
+                                         cfg.d_ff)
+        elif spec.mixer == C.MLSTM:
+            hdm = 2 * cfg.d_model // H
+            c["mlstm"] = {
+                "C": ParamDecl((B, H, hdm, hdm), init="zeros", dtype=f32),
+                "n": ParamDecl((B, H, hdm), init="zeros", dtype=f32),
+                "m": ParamDecl((B, H), init="zeros", dtype=f32)}
+        elif spec.mixer == C.SLSTM:
+            st = ParamDecl((B, H, cfg.d_model // H), init="zeros",
+                           dtype=f32)
+            c["slstm"] = {"c": st, "n": st, "m": st, "h": st}
+        if spec.cross_attn:
+            kv = ParamDecl((B, cfg.encoder.n_frames, Hk, hd), init="zeros",
+                           dtype=dt)
+            c["cross_k"], c["cross_v"] = kv, kv
         out.append(c)
     return out
 
@@ -267,9 +409,13 @@ def _ring_abs_positions(pos: torch.Tensor, W: int) -> torch.Tensor:
 
 
 def prefill(params: ParamTree, cfg: ModelConfig, tokens: torch.Tensor,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None):
-    """Run the (B, P) prompt, fill fresh caches of ``cache_len`` positions
-    (default P).  Returns (last-token logits (B, 1, V), cache, P - 1).
+    """Run the (B, P) prompt (with the stub inputs ``frames`` / ``patches``
+    where the config has them), fill fresh caches of ``cache_len``
+    positions (default P).  Returns (last-token logits (B, 1, V), cache,
+    P - 1).
 
     With RG-LRU layers, a prompt shorter than ``conv1d_width - 1`` tokens
     (the conv state) raises ``ValueError``: the reference builds a state
@@ -282,20 +428,60 @@ def prefill(params: ParamTree, cfg: ModelConfig, tokens: torch.Tensor,
         raise ValueError(f"{cfg.name}: a prompt of {P} tokens is too short; "
                          f"the RG-LRU conv state needs at least {need}")
     S = cache_len or P
-    x, raw = forward(params, cfg, tokens, want_cache=True)
+    x, _, raw = forward(params, cfg, tokens, frames, patches,
+                        want_cache=True)
     cache = init_cache(cfg, B, S, tokens.device)
     for spec, rc, c in zip(cfg.layers, raw, cache):
         if spec.mixer == C.ATTN_LOCAL:
             L = _cache_len(cfg, spec, S)
             c["k"] = _ring_gather(rc["k"], P, L).to(c["k"].dtype)
             c["v"] = _ring_gather(rc["v"], P, L).to(c["v"].dtype)
-        elif spec.mixer == C.ATTN_GLOBAL:
+        elif "k" in rc:
             c["k"][:, :P] = rc["k"]
             c["v"][:, :P] = rc["v"]
-        else:
-            c["rglru"] = {k: rc["rglru"][k].to(z.dtype)
-                          for k, z in c["rglru"].items()}
+        for key in ("rglru", "mlstm", "slstm"):
+            if key in rc:
+                c[key] = {k: rc[key][k].to(z.dtype)
+                          for k, z in c[key].items()}
+        if "cross_k" in rc:
+            c["cross_k"], c["cross_v"] = rc["cross_k"], rc["cross_v"]
     return unembed(params, cfg, x[:, -1:, :]), cache, P - 1
+
+
+def _self_attention_step(a: ParamTree, cfg: ModelConfig, mixer: str,
+                         h: torch.Tensor, cache: Dict[str, Any],
+                         pos: torch.Tensor) -> torch.Tensor:
+    """One token of self attention, writing its k/v into the layer's
+    cache in place. h: (B, 1, d); pos: (B,)."""
+    B = h.shape[0]
+    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = h.dtype
+    q = (h @ a["wq"].to(dt)).reshape(B, 1, H, hd)
+    k = (h @ a["wk"].to(dt)).reshape(B, 1, Hk, hd)
+    v = (h @ a["wv"].to(dt)).reshape(B, 1, Hk, hd)
+    if cfg.pos_emb == "rope":
+        pp = pos[:, None]                                  # (B, 1)
+        q = rope(q, pp, cfg.rope_theta)
+        k = rope(k, pp, cfg.rope_theta)
+    kc, vc = cache["k"], cache["v"]
+    W = kc.shape[1]
+    slot = pos % W if mixer == C.ATTN_LOCAL else pos
+    rows = torch.arange(B, device=pos.device)
+    kc[rows, slot] = k[:, 0].to(kc.dtype)
+    vc[rows, slot] = v[:, 0].to(vc.dtype)
+    if mixer == C.ATTN_LOCAL:
+        # ring cache: attend to the slots actually written (abs >= 0)
+        written = _ring_abs_positions(pos, W) >= 0           # (B, W)
+        qg = q.reshape(B, Hk, H // Hk, hd)
+        s = torch.einsum("bkgd,bskd->bkgs", qg, kc).float()
+        s = s * hd ** -0.5
+        s = s.masked_fill(~written[:, None, None, :], -1e30)
+        prob = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgs,bskd->bkgd", prob.to(vc.dtype), vc)
+        o = o.reshape(B, 1, H, hd).to(dt)
+    else:
+        o = decode_attention(q, kc, vc, pos)
+    return o.reshape(B, 1, H * hd) @ a["wo"].to(dt)
 
 
 def _layer_step(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
@@ -304,53 +490,50 @@ def _layer_step(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
     """One token through one layer, updating the layer's ``cache`` in
     place. x_t: (B, 1, d); pos: (B,) per-row positions."""
     B = x_t.shape[0]
-    H, Hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, hd = cfg.n_heads, cfg.hd
     dt = x_t.dtype
     h = rms_norm(x_t, p["norm"], cfg.norm_eps)
     sd = cfg.sd_decode_frac > 0
     if spec.mixer in _ATTN:
-        a = p["attn"]
-        q = (h @ a["wq"].to(dt)).reshape(B, 1, H, hd)
-        k = (h @ a["wk"].to(dt)).reshape(B, 1, Hk, hd)
-        v = (h @ a["wv"].to(dt)).reshape(B, 1, Hk, hd)
-        pp = pos[:, None]                                  # (B, 1)
-        q = rope(q, pp, cfg.rope_theta)
-        k = rope(k, pp, cfg.rope_theta)
-        kc, vc = cache["k"], cache["v"]
-        W = kc.shape[1]
-        slot = pos % W if spec.mixer == C.ATTN_LOCAL else pos
-        rows = torch.arange(B, device=pos.device)
-        kc[rows, slot] = k[:, 0].to(kc.dtype)
-        vc[rows, slot] = v[:, 0].to(vc.dtype)
-        if spec.mixer == C.ATTN_LOCAL:
-            # ring cache: attend to the slots actually written (abs >= 0)
-            written = _ring_abs_positions(pos, W) >= 0       # (B, W)
-            qg = q.reshape(B, Hk, H // Hk, hd)
-            s = torch.einsum("bkgd,bskd->bkgs", qg, kc).float()
-            s = s * hd ** -0.5
-            s = s.masked_fill(~written[:, None, None, :], -1e30)
-            prob = torch.softmax(s, dim=-1)
-            o = torch.einsum("bkgs,bskd->bkgd", prob.to(vc.dtype), vc)
-            o = o.reshape(B, 1, H, hd).to(dt)
-        else:
-            o = decode_attention(q, kc, vc, pos)
-        x_t = x_t + o.reshape(B, 1, H * hd) @ a["wo"].to(dt)
-    elif sd:
+        x_t = x_t + _self_attention_step(p["attn"], cfg, spec.mixer, h,
+                                         cache, pos)
+    elif spec.mixer == C.RGLRU and sd:
         o, cache["rglru"], cache["sd"] = rglru_step_sd(
             p["rglru"], h, cache["rglru"], cache["sd"], cfg.act,
             cfg.sd_decode_frac)
         x_t = x_t + o
-    else:
+    elif spec.mixer == C.RGLRU:
         o, st = rglru_block_step(p["rglru"], h, cache["rglru"], cfg.act)
         cache["rglru"] = {"h": st["h"], "conv": st["conv"].to(
             cache["rglru"]["conv"].dtype)}
         x_t = x_t + o
-    h = rms_norm(x_t, p["ffn_norm"], cfg.norm_eps)
-    if sd and spec.mixer == C.RGLRU:
-        o, cache["sd"] = ffn_step_sd(p["ffn"], h, cache["sd"], cfg.act,
-                                     cfg.sd_decode_frac)
-        return x_t + o
-    return x_t + ffn_apply(p["ffn"], h, cfg.act)
+    elif spec.mixer == C.MLSTM:
+        o, cache["mlstm"] = mlstm_block_step(p["mlstm"], h, cache["mlstm"],
+                                             cfg.n_heads)
+        x_t = x_t + o
+    elif spec.mixer == C.SLSTM:
+        o, cache["slstm"] = slstm_block_step(p["slstm"], h, cache["slstm"],
+                                             cfg.n_heads)
+        x_t = x_t + o
+    else:
+        raise ValueError(f"{cfg.name}: {spec.mixer!r} layers do not decode")
+    if spec.cross_attn:
+        hc = rms_norm(x_t, p["cross_norm"], cfg.norm_eps)
+        q = (hc @ p["cross"]["wq"].to(dt)).reshape(B, 1, H, hd)
+        kc, vc = cache["cross_k"], cache["cross_v"]
+        o = decode_attention(q, kc, vc, kc.shape[1] - 1)
+        x_t = x_t + o.reshape(B, 1, H * hd) @ p["cross"]["wo"].to(dt)
+    if spec.ffn == C.FFN_DENSE:
+        h = rms_norm(x_t, p["ffn_norm"], cfg.norm_eps)
+        if sd and spec.mixer == C.RGLRU:
+            o, cache["sd"] = ffn_step_sd(p["ffn"], h, cache["sd"], cfg.act,
+                                         cfg.sd_decode_frac)
+            return x_t + o
+        return x_t + ffn_apply(p["ffn"], h, cfg.act)
+    if spec.ffn == C.FFN_MOE:
+        h = rms_norm(x_t, p["ffn_norm"], cfg.norm_eps)
+        return x_t + _moe(p["moe"], cfg, h)[0]
+    return x_t
 
 
 def decode_step(params: ParamTree, cfg: ModelConfig, cache: Cache,
@@ -361,6 +544,8 @@ def decode_step(params: ParamTree, cfg: ModelConfig, cache: Cache,
     B = token.shape[0]
     pos = torch.as_tensor(pos, device=token.device).long().broadcast_to((B,))
     x_t = params["embed"][token]
+    if cfg.pos_emb == "sinusoidal":
+        x_t = x_t + sinusoidal_at(pos, cfg.d_model).to(x_t.dtype)[:, None, :]
     for p, spec, c in zip(params["layers"], cfg.layers, cache):
         x_t = _layer_step(p, cfg, spec, x_t, c, pos)
     x_t = rms_norm(x_t, params["final_norm"], cfg.norm_eps)

@@ -8,6 +8,13 @@ advance together through one batched :func:`decode_step`, each at its
 own position; finished slots (EOS, ``max_tokens``, or the cache full at
 ``pos >= S - 1``) are released and refilled without stopping the batch.
 A decode step reads one thing back to the host: the step's logits.
+
+The engine serves every decoder-only architecture (attention, RG-LRU,
+mLSTM / sLSTM, dense and MoE FFNs): each cache leaf, the recurrent
+blocks' float32 states included, is written row by row as it is.  Like
+the reference's, it passes no stub inputs, so it refuses a config with an
+encoder or a frontend (whisper, internvl2); ``transformer.prefill(frames=
+..., patches=...)`` and ``decode_step`` run those.
 """
 from __future__ import annotations
 
@@ -48,6 +55,11 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: Any, batch_slots: int,
                  cache_len: int, eos_id: int = 1,
                  temperature: float = 0.0, seed: int = 0, device=None):
+        if cfg.encoder is not None or cfg.frontend is not None:
+            raise ValueError(
+                f"{cfg.name}: the engine passes no frames or patches; run "
+                f"an encoder or frontend config through transformer."
+                f"prefill(frames=/patches=) and decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params

@@ -12,9 +12,11 @@ the spec's own layouts.
 For the LM substrate, :func:`lm_params_from_numpy` and
 :func:`lm_cache_from_numpy` take the reference's parameter and decode
 cache trees as numpy (nested dicts whose per-layer leaves are stacked by
-scan group, ``groups/g{i}/l{j}``) and unstack them into the port's
-one-entry-per-layer trees, each leaf checked against the port's own
-declarations.
+scan group, ``groups/g{i}/l{j}``, and the encoder's by ``encoder/groups/
+g0/l0``) and unstack them into the port's one-entry-per-layer trees, each
+leaf checked against the port's own declarations.  A tree the reference's
+``quantize_params`` made crosses too: each stacked ``__q`` is split along
+its layer axis, and every layer of the stack gets the shared ``__s``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import tree_leaves
+from repro_torch.models.quant_lm import (Q_KEY, S_KEY, is_qleaf,
+                                         quantize_model_decls)
 
 NET_FORMAT_VERSION = 1
 
@@ -100,14 +104,18 @@ def _unstack_groups(groups: Dict[str, Any], cfg: ModelConfig) -> List[Any]:
         g = groups[f"g{i}"]
         for r in range(count):
             for j in range(len(specs)):
-                layers.append(_map_np(lambda a, r=r: a[r], g[f"l{j}"]))
+                layers.append(_layer_of(g[f"l{j}"], r))
     return layers
 
 
-def _map_np(fn, tree):
+def _layer_of(tree, r: int):
+    """Layer ``r`` of a stacked subtree; a quantised leaf keeps its scale,
+    which the stack shares."""
+    if is_qleaf(tree):
+        return {Q_KEY: np.asarray(tree[Q_KEY])[r], S_KEY: tree[S_KEY]}
     if isinstance(tree, dict):
-        return {k: _map_np(fn, v) for k, v in tree.items()}
-    return fn(np.asarray(tree))
+        return {k: _layer_of(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
 
 
 def _from_decls(tree: Any, decls: Any, dev: torch.device,
@@ -141,11 +149,20 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                          device=None) -> Dict[str, Any]:
     """The reference's LM parameter tree (numpy leaves) as the port's
     parameters on ``device`` (default: the CUDA device), in
-    ``cfg.tdtype``."""
+    ``cfg.tdtype``; a quantised tree (the reference's ``quantize_params``)
+    as the port's ``quant_lm.quantize_model`` storage."""
     dev = resolve_device(device)
-    flat = {k: v for k, v in tree.items() if k != "groups"}
+    flat = {k: v for k, v in tree.items() if k not in ("groups", "encoder")}
     flat["layers"] = _unstack_groups(tree["groups"], cfg)
-    return _from_decls(flat, T.model_decls(cfg), dev)
+    if "encoder" in tree:
+        g = tree["encoder"]["groups"]["g0"]["l0"]
+        n = cfg.encoder.n_layers if cfg.encoder is not None else 0
+        flat["encoder"] = {"final_norm": tree["encoder"]["final_norm"],
+                           "layers": [_layer_of(g, r) for r in range(n)]}
+    decls = T.model_decls(cfg)
+    if is_qleaf(tree.get("embed")):
+        decls = quantize_model_decls(decls)
+    return _from_decls(flat, decls, dev)
 
 
 def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,

@@ -22,7 +22,7 @@ from repro_torch.core.sne_net import (default_capacities, event_apply,
                                       event_predict, init_snn, tiny_net)
 from repro_torch.data.events_ds import TINY, batch_at, sample_recording_path
 from repro_torch.launch import serve as launch_serve
-from repro_torch.models.transformer import init_model
+from repro_torch.models.transformer import init_cache, init_model
 from repro_torch.serve import EventServeEngine, ServeEngine
 from repro_torch.train.snn_loop import (TrainConfig, evaluate, fit,
                                         load_trained_tiny)
@@ -67,6 +67,15 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/models/transformer.py",
             "src/repro_torch/models/attention.py",
             "src/repro_torch/models/recurrent.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/xlstm.py",
+            "src/repro_torch/models/quant_lm.py",
+            "src/repro_torch/models/frontend.py",
+            "src/repro_torch/configs/olmoe_1b_7b.py",
+            "src/repro_torch/configs/llama4_maverick.py",
+            "src/repro_torch/configs/xlstm_1_3b.py",
+            "src/repro_torch/configs/whisper_medium.py",
+            "src/repro_torch/configs/internvl2_26b.py",
             "src/repro_torch/core/sd_decode.py",
             "src/repro_torch/core/lm_events.py",
             "src/repro_torch/serve/engine.py",
@@ -99,7 +108,10 @@ def no_cuda():
                                    "load_trained_tiny", "event_forward",
                                    "event_apply", "event_predict",
                                    "lm_engine", "init_model",
-                                   "lm_params_from_numpy", "launch_serve"])
+                                   "lm_params_from_numpy", "launch_serve",
+                                   "lm_engine_moe", "lm_engine_xlstm",
+                                   "init_model_encoder", "init_cache_xlstm",
+                                   "launch_serve_moe"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
@@ -142,6 +154,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
         "lm_params_from_numpy": lambda: lm_params_from_numpy({}, lm_cfg),
         "launch_serve": lambda: launch_serve.main(
             ["--arch", "recurrentgemma-2b", "--requests", "1"]),
+        "lm_engine_moe": lambda: ServeEngine(
+            get_smoke("olmoe-1b-7b"), {}, batch_slots=2, cache_len=16),
+        "lm_engine_xlstm": lambda: ServeEngine(
+            get_smoke("xlstm-1.3b"), {}, batch_slots=2, cache_len=16),
+        "init_model_encoder": lambda: init_model(
+            torch.Generator(), get_smoke("whisper-medium")),
+        "init_cache_xlstm": lambda: init_cache(get_smoke("xlstm-1.3b"), 2,
+                                               16),
+        "launch_serve_moe": lambda: launch_serve.main(
+            ["--arch", "llama4-maverick-400b-a17b", "--requests", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

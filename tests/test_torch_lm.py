@@ -44,16 +44,14 @@ from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
 from repro_torch.models import recurrent as TR
 from repro_torch.models import transformer as T
-from repro_torch.models.config import (ATTN_GLOBAL, FFN_MOE, MLSTM,
-                                       uniform_layers)
+from repro_torch.models.frontend import frontend_feature_shape
 from repro_torch.models.layers import tree_leaves
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.weights import lm_cache_from_numpy, lm_params_from_numpy
 
 torch.set_num_threads(1)
 F32 = dict(rtol=1e-5, atol=1e-5)
-ARCHS = ("granite-8b", "gemma3-1b", "deepseek-7b", "glm4-9b",
-         "recurrentgemma-2b")
+ARCHS = tcfg.ARCH_IDS
 
 
 class _Lazy:
@@ -107,11 +105,7 @@ def _randn(rng, *shape, scale=1.0):
 
 def test_registry_and_configs_match_the_reference():
     assert tcfg.ARCH_IDS == JCFG.ARCH_IDS
-    for arch in tcfg.ARCH_IDS:
-        if arch not in ARCHS:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tcfg.get_config(arch)
-            continue
+    for arch in ARCHS:
         for got, want in ((tcfg.get_config(arch), JCFG.get_config(arch)),
                           (tcfg.get_smoke(arch), JCFG.get_smoke(arch))):
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -125,17 +119,21 @@ def test_registry_and_configs_match_the_reference():
 
 
 def test_unported_layer_kinds_are_refused():
-    base = tcfg.get_smoke("granite-8b")
-    for cfg in (dataclasses.replace(base, layers=uniform_layers(
-                    3, ATTN_GLOBAL, FFN_MOE), n_experts=4, top_k=1,
-                    expert_ff=8),
-                dataclasses.replace(base, layers=uniform_layers(3, MLSTM)),
-                dataclasses.replace(base, weight_quant="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.init_model(torch.Generator(), cfg, "cpu")
+    """Only the expert-parallel MoE dispatch and the folded causal schedule
+    are left (ROADMAP Queue A, LM substrate item 6); int8 storage is no
+    longer refused."""
+    cfg = dataclasses.replace(tcfg.get_smoke("olmoe-1b-7b"),
+                              moe_impl="shardmap")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+        T.init_model(torch.Generator(), cfg, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+        T.cache_decls(cfg, 1, 8)
     q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
         TA.flash_attention(q, q, q, causal=True, fold=True)
+    int8 = dataclasses.replace(tcfg.get_smoke("granite-8b"),
+                               weight_quant="int8")
+    assert T.param_count(int8) == T.param_count(tcfg.get_smoke("granite-8b"))
 
 
 def test_init_model_draws_the_declared_tree():
@@ -416,23 +414,47 @@ def _check_cache(got, jcache, cfg, S, tol=F32):
         _close(g, w, tol, what=str(path))
 
 
+def _stub(cfg, B, seed):
+    """The stub frontend's inputs (``frames`` or ``patches``) as numpy,
+    or none."""
+    shape = frontend_feature_shape(cfg, B)
+    if shape is None:
+        return {}
+    key = "frames" if cfg.frontend == "audio" else "patches"
+    return {key: _randn(np.random.default_rng(seed), *shape)}
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_reference(arch):
-    """forward logits; prefill logits and every cache leaf; 8 decode steps,
-    logits and caches.  A 20-token prompt wraps the smoke window of 16 in
-    the local-attention rings (gemma3, recurrentgemma)."""
+    """forward logits and MoE stats; prefill logits and every cache leaf;
+    8 decode steps, logits and caches.  A 20-token prompt wraps the smoke
+    window of 16 in the local-attention rings (gemma3, recurrentgemma);
+    whisper's encoder takes 32 stub frames, internvl2's first 8 positions
+    are stub patches.  Decode is held to the forward's logits too where
+    the published capacity drops no route (not for MoE: the prefill of 40
+    tokens drops where the forward of 56 does not, or other ones)."""
     jc, jp, cfg, p = _model(arch)
     P, S = 20, 28
     toks = np.random.default_rng(10).integers(0, cfg.vocab_size, (2, S))
-    jfwd = jax.jit(lambda pp, t: JT._unembed(pp, jc, JT.forward(pp, jc,
-                                                                t)[0]))
-    full = jfwd(jp, jnp.asarray(toks))
-    x, _ = T.forward(p, cfg, _t(toks))
-    _close(T.unembed(p, cfg, x), full)
+    stub = _stub(cfg, 2, 14)
+    jstub = {k: jnp.asarray(v) for k, v in stub.items()}
+    tstub = {k: _t(v) for k, v in stub.items()}
 
-    jlog, jcache, jpos = jax.jit(lambda pp, t: JT.prefill(
-        pp, jc, t, cache_len=S))(jp, jnp.asarray(toks[:, :P]))
-    log, cache, pos = T.prefill(p, cfg, _t(toks[:, :P]), cache_len=S)
+    def jfwd(pp, t, kw):
+        x, st, _ = JT.forward(pp, jc, t, **kw)
+        return JT._unembed(pp, jc, x), st
+    full, jst = jax.jit(jfwd)(jp, jnp.asarray(toks), jstub)
+    x, st, _ = T.forward(p, cfg, _t(toks), **tstub)
+    _close(T.unembed(p, cfg, x), full)
+    _close(st.aux_loss, jst.aux_loss, what="aux_loss")
+    _close(st.dropped_frac, jst.dropped_frac, what="dropped_frac")
+    if cfg.n_experts:
+        assert float(st.aux_loss) > 0
+
+    jlog, jcache, jpos = jax.jit(lambda pp, t, kw: JT.prefill(
+        pp, jc, t, cache_len=S, **kw))(jp, jnp.asarray(toks[:, :P]), jstub)
+    log, cache, pos = T.prefill(p, cfg, _t(toks[:, :P]), cache_len=S,
+                                **tstub)
     assert pos == int(jpos) == P - 1
     _close(log, jlog)
     _check_cache(cache, jcache, cfg, S)
@@ -443,7 +465,8 @@ def test_forward_prefill_decode_match_reference(arch):
         log, cache, nxt = T.decode_step(p, cfg, cache, _t(toks[:, t:t + 1]),
                                         t)
         _close(log, jlog, what=f"step {t}")
-        _close(log[:, 0], full[:, t], dict(rtol=0, atol=5e-4))
+        if not cfg.n_experts:
+            _close(log[:, 0], full[:, t], dict(rtol=0, atol=5e-4))
         assert nxt.tolist() == [t + 1, t + 1]
     _check_cache(cache, jcache, cfg, S)
 
@@ -456,7 +479,7 @@ def test_bf16_forward_and_decode():
         pp, jc, JT.forward(pp, jc, t)[0]))(jp, jnp.asarray(toks)), np.float32)
     tol = dict(rtol=0, atol=4 * 2 ** -8 * (2 * cfg.n_layers) ** 0.5
                * max(1.0, np.abs(full).max()))
-    x, _ = T.forward(p, cfg, _t(toks))
+    x, _, _ = T.forward(p, cfg, _t(toks))
     _close(T.unembed(p, cfg, x), full, tol)
     jlog, jcache, _ = jax.jit(lambda pp, t: JT.prefill(
         pp, jc, t, cache_len=24))(jp, jnp.asarray(toks[:, :16]))
@@ -569,7 +592,9 @@ def _serve_both(arch, temperature, jeng_jits):
     return jeng._prefill, jeng._decode
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-8b",
+                                  "olmoe-1b-7b", "llama4-maverick-400b-a17b",
+                                  "xlstm-1.3b"])
 def test_engine_matches_reference_engine(arch):
     """5 requests (prompts of 4-20 tokens) on 2 slots, greedy and then
     with temperature 0.7 on shared Gumbel noise: teacher-forced logits per
@@ -593,13 +618,15 @@ def test_launcher_serves_on_the_cpu(capsys):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-def test_cuda_engine_matches_cpu():
-    """The recurrentgemma smoke engine (float32, TF32 off) on the card and
-    on the CPU from the same weights: teacher-forced logits within 1e-4,
-    tokens equal wherever the CPU's margin exceeds 2e-4, equal stats."""
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "olmoe-1b-7b",
+                                  "xlstm-1.3b"])
+def test_cuda_engine_matches_cpu(arch):
+    """A smoke engine (float32, TF32 off) on the card and on the CPU from
+    the same weights: teacher-forced logits within 1e-4, tokens equal
+    wherever the CPU's margin exceeds 2e-4, equal stats."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cfg = tcfg.get_smoke("recurrentgemma-2b")
+    cfg = tcfg.get_smoke(arch)
     p = T.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
     pc = TL.tree_map(lambda w: w.to("cuda"), p)
     prev = torch.backends.cuda.matmul.allow_tf32
