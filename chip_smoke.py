@@ -172,7 +172,33 @@ non-zero):
       forward's ``dropped_frac`` and every MoE layer's kept (expert,
       token) routes equal, and two card runs bitwise equal;
    and the phase must launch none of the port's eight kernels.  Its
-   numbers are kept under ``"lm_archs"``.
+   numbers are kept under ``"lm_archs"``;
+11. LM training on the card (no kernel build; the phase launches none of
+   the port's eight kernels, counts set to 0 before it and read after):
+   a. gemma3-1b at full width (``get_config``: 26 layers, d_model 1152,
+      vocab 262144, tied, bf16, remat, float32 moments), weights from
+      ``torch.Generator("cuda")`` seeded 0, the port's ``lm_ds`` on the
+      card (B = 8, S = 1024), loss chunk 128, ``warmup_cosine(3e-4, 2,
+      6)``: ``train_loop`` for 6 steps with checkpoints every 3 into a
+      temporary directory; then the step-6 checkpoint deleted and the run
+      resumed from step 3: losses 3-5, params and moments bitwise equal
+      to the uninterrupted run, every loss finite, every leaf moved;
+      parameters, peak memory, p50 step (steps 2-6) beside the step's
+      FLOP bound (forward, backward and remat GEMMs plus attention at 989
+      TFLOP/s bf16), tokens/s, checkpoint bytes and ms per save, and one
+      traced step's device kernels and busy share;
+   b. ``launch.train.main([--arch, <id>, --smoke, --steps, 3])`` on the
+      card for each of the ten archs: every loss finite;
+   c. each float32 smoke config, one ``make_train_step`` on the card and
+      on the CPU from the same weights and batch, TF32 off: loss and
+      grad_norm within 1e-5 relative, every gradient leaf within 1e-4 of
+      its largest magnitude plus 1e-6, MoE's dropped fraction equal; and
+      granite smoke's remat off / ``"full"`` / ``"boundaries"`` steps
+      bitwise equal on the card, ``grad_accum=4`` against 1 within the
+      reference's tolerance;
+   d. granite smoke, 60 steps on the card: the loss falls by more than
+      1.0 (the reference's ``test_lm_training_learns``).
+   Its numbers are kept under ``"lm_train"``.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -3308,6 +3334,423 @@ def phase_lm_archs(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: LM training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_B, TRAIN_S, TRAIN_CHUNK = 8, 1024, 128
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core peak
+GEMM_NAMES = ("nvjet", "gemm", "cutlass", "xmma")   # cuBLAS kernel names
+SMOKE_CHUNK, SMOKE_B, SMOKE_S = 16, 4, 32
+LEARN_STEPS, LEARN_B, LEARN_S = 60, 8, 32   # the reference's learning test
+TRAIN_REL_TOL, GRAD_TOL = 1e-5, 1e-4        # card vs CPU, float32
+
+
+def _train_step_flops(cfg, B: int, S: int) -> dict:
+    """The operations one ``make_train_step`` of ``cfg`` does at (B, S),
+    reckoned from the code: the layer GEMMs run forward, again under
+    remat, and backward (two GEMMs each); the unembedding GEMM forward,
+    again inside its checkpointed CE chunk, and backward; the blockwise
+    attention computes every (q, kv) block, masked or not (``Cq = Ckv =
+    S`` here), QK^T and PV, forward, again under remat, and backward
+    (twice each).  Dense attention layers and dense FFNs only."""
+    from repro_torch.models import config as C
+    d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    per_layer = 0
+    for spec in cfg.layers:
+        assert spec.mixer in (C.ATTN_GLOBAL, C.ATTN_LOCAL) and \
+            spec.ffn == C.FFN_DENSE and not spec.cross_attn, spec
+        per_layer += d * H * hd + 2 * d * Hk * hd + H * hd * d \
+            + 3 * d * cfg.d_ff
+    T_ = B * S
+    layers = 2 * T_ * per_layer                  # one forward
+    head = 2 * T_ * d * cfg.vocab_padded
+    remat = 1 if cfg.remat else 0
+    gemm = layers * (1 + remat + 2) + head * (1 + 1 + 2)
+    attn_fwd = cfg.n_layers * 2 * (2 * B * H * S * S * hd)
+    attn = attn_fwd * (1 + remat + 2)
+    return {"gemm_flop": gemm, "attention_flop": attn,
+            "total_flop": gemm + attn,
+            "bound_ms": 1e3 * (gemm + attn) / BF16_OPS_PER_S}
+
+
+@contextlib.contextmanager
+def _timed_saves():
+    """Times every ``train.checkpoint.save`` while open and records the
+    bytes it wrote: a list of (seconds, bytes)."""
+    from repro_torch.train import checkpoint as ck
+    own, saves = ck.save, []
+
+    def save(ckpt_dir, step, tree, *a, **kw):
+        t0 = time.perf_counter()
+        final = own(ckpt_dir, step, tree, *a, **kw)
+        saves.append((time.perf_counter() - t0, sum(
+            os.path.getsize(os.path.join(final, f))
+            for f in os.listdir(final))))
+        return final
+
+    ck.save = save
+    try:
+        yield saves
+    finally:
+        ck.save = own
+
+
+def _trees_equal(a, b) -> bool:
+    import torch
+    from repro_torch.models.layers import tree_leaves
+    la, lb = list(tree_leaves(a)), list(tree_leaves(b))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+
+def _phase_train_full(dev, smi: str) -> dict:
+    """11a: full-width gemma3-1b through ``train_loop``, 6 steps with
+    checkpoints every 3, resumed from step 3 bitwise; one step traced."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_ds import LmDatasetSpec, stream
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train.loop import make_train_step, train_loop
+    cfg = get_config(TRAIN_ARCH)
+    if not (cfg.remat and cfg.moment_dtype == "float32"
+            and cfg.dtype == "bfloat16"):
+        raise AssertionError(f"phase 11: {TRAIN_ARCH} is not the bf16 remat "
+                             f"config with float32 moments")
+    n_params = T.param_count(cfg)
+    flops = _train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    log(f"  {TRAIN_ARCH}: {n_params} parameters, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype}, remat "
+        f"{cfg.remat_policy}, {cfg.moment_dtype} moments; B = {TRAIN_B}, "
+        f"S = {TRAIN_S}, loss chunk {TRAIN_CHUNK}; a step's work "
+        f"{flops['gemm_flop'] / 1e12:.2f} TFLOP of GEMMs + "
+        f"{flops['attention_flop'] / 1e12:.2f} TFLOP of attention, bound "
+        f"{flops['bound_ms']:.2f} ms at 989 TFLOP/s bf16 [{smi}]")
+    ds = LmDatasetSpec(vocab_size=cfg.vocab_size, seq_len=TRAIN_S)
+    sched = warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS)
+
+    def batches(start):
+        for t, l in stream(ds, 0, TRAIN_B, start_index=start, device=dev):
+            yield {"tokens": t, "labels": l}
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    kw = dict(seed=0, ckpt_dir=ckdir, ckpt_every=TRAIN_CKPT_EVERY,
+              log_every=1, loss_chunk=TRAIN_CHUNK, device=dev)
+    try:
+        _free()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with _timed_saves() as saves:
+            full = train_loop(cfg, batches(0), TRAIN_STEPS, sched,
+                              log_fn=lambda s: log("  " + s), **kw)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [h["loss"] for h in full["history"]]
+        step_ms = [1e3 * h["step_time_s"] for h in full["history"]]
+        p50 = float(np.median(step_ms[1:]))
+        tok_s = TRAIN_B * TRAIN_S / (p50 / 1e3)
+        if not all(np.isfinite(losses)) or len(losses) != TRAIN_STEPS:
+            raise AssertionError(f"phase 11: losses {losses}")
+        init = T.init_model(torch.Generator(dev).manual_seed(0), cfg, dev)
+        moved = {"/".join(map(str, p)): float((a != b).float().mean())
+                 for (p, a), (_, b) in zip(tree_leaves(init),
+                                           tree_leaves(full["params"]))}
+        del init
+        if min(moved.values()) <= 0.0:
+            raise AssertionError(f"phase 11: leaves that did not move "
+                                 f"{[k for k, v in moved.items() if v <= 0]}")
+        frac_moved = float(np.mean(list(moved.values())))
+        log(f"  6 steps: losses {[round(x, 4) for x in losses]}; step ms "
+            f"{[round(x, 1) for x in step_ms]}, p50 of steps 2-6 {p50:.1f} "
+            f"ms = {p50 / flops['bound_ms']:.2f}x the {flops['bound_ms']:.2f}"
+            f" ms bound ({flops['total_flop'] / (p50 / 1e3) / 1e12:.1f} "
+            f"TFLOP/s), {tok_s:.0f} tokens/s; peak device memory "
+            f"{peak / 2**30:.2f} GiB; every leaf moved (mean share of "
+            f"elements {frac_moved:.3f}) [{smi}]")
+        log(f"  checkpoints: {len(saves)} saves of "
+            f"{[round(b / 1e9, 3) for _, b in saves]} GB in "
+            f"{[round(1e3 * s, 1) for s, _ in saves]} ms (run wall "
+            f"{run_s:.1f} s) [{smi}]")
+
+        shutil.rmtree(os.path.join(ckdir, f"step_{TRAIN_STEPS:08d}"))
+        t0 = time.perf_counter()
+        msgs = []
+        res = train_loop(cfg, batches(TRAIN_CKPT_EVERY), TRAIN_STEPS, sched,
+                         log_fn=msgs.append, **kw)
+        resume_s = time.perf_counter() - t0
+        r_losses = [h["loss"] for h in res["history"]]
+        same = (r_losses == losses[TRAIN_CKPT_EVERY:]
+                and _trees_equal(res["params"], full["params"])
+                and _trees_equal(res["opt_state"].mu, full["opt_state"].mu)
+                and _trees_equal(res["opt_state"].nu, full["opt_state"].nu)
+                and int(res["opt_state"].step) == TRAIN_STEPS)
+        log(f"  resumed ({msgs[0]}): losses {[round(x, 4) for x in r_losses]}"
+            f", losses 3-5, params and moments bitwise equal to the "
+            f"uninterrupted run: {same} (wall {resume_s:.1f} s) [{smi}]")
+        if not same:
+            raise AssertionError("phase 11: the resumed run differs")
+
+        params, opt = res["params"], res["opt_state"]
+        del full, res
+        _free()
+        step = make_train_step(cfg, sched, TRAIN_CHUNK)
+        batch = next(batches(TRAIN_STEPS))
+        params, opt, _ = step(params, opt, batch)      # warm, not measured
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        trace = _device_summary(prof, traced_wall,
+                                f"{TRAIN_ARCH} train step (B = {TRAIN_B}, "
+                                f"S = {TRAIN_S})", smi)
+        kernels = [e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")]
+        trace["gemm_ms"] = sum(
+            e.self_device_time_total for e in kernels
+            if any(w in e.key.lower() for w in GEMM_NAMES)) / 1e3
+        if not trace["gemm_ms"]:
+            raise AssertionError("phase 11: no GEMM kernel in the trace")
+        log(f"  of its {trace['device_kernel_ms']:.1f} ms of device time, "
+            f"GEMM kernels {trace['gemm_ms']:.1f} ms "
+            f"({flops['gemm_flop'] / (trace['gemm_ms'] / 1e3) / 1e12:.0f} "
+            f"TFLOP/s over them); device time over the untraced p50 "
+            f"{trace['device_kernel_ms'] / p50:.2%} [{smi}]")
+        del params, opt, prof, kernels
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+        _free()
+    return {"arch": TRAIN_ARCH, "params": n_params, "batch": TRAIN_B,
+            "seq": TRAIN_S, "loss_chunk": TRAIN_CHUNK, "losses": losses,
+            "step_ms": step_ms, "p50_step_ms": p50, "tokens_per_s": tok_s,
+            "peak_device_memory_bytes": peak, **flops,
+            "p50_over_bound": p50 / flops["bound_ms"],
+            "checkpoint_saves": [{"ms": 1e3 * s, "bytes": b}
+                                 for s, b in saves],
+            "resumed_losses": r_losses, "resume_bitwise": same,
+            "resume_wall_s": resume_s, "mean_share_moved": frac_moved,
+            "trace": trace}
+
+
+def _phase_train_launcher(smi: str) -> list:
+    """11b: ``launch.train.main`` for every arch's smoke config, 3 steps,
+    on the card (its default device)."""
+    import io
+    import numpy as np
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import train as launch_train
+    rows = []
+    for arch in ARCH_IDS:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            res = launch_train.main(["--arch", arch, "--smoke", "--steps",
+                                     "3"])
+        losses = [h["loss"] for h in res["history"]]
+        rows.append({"arch": arch, "losses": losses,
+                     "wall_s": time.perf_counter() - t0})
+        log(f"  launcher {arch} --smoke --steps 3: losses "
+            f"{[round(x, 4) for x in losses]} in {rows[-1]['wall_s']:.1f} s"
+            f" ({out.getvalue().strip().splitlines()[-1]}) [{smi}]")
+        if len(losses) != 3 or not all(np.isfinite(losses)):
+            raise AssertionError(f"phase 11: launcher {arch} {losses}")
+    return rows
+
+
+def _smoke_state(cfg, dev, seed: int = 0):
+    """The smoke config's training state drawn on the CPU from ``seed``,
+    and a copy on ``dev``."""
+    import torch
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim.optimizers import AdamWState
+    from repro_torch.train.loop import init_train_state
+    p, o = init_train_state(torch.Generator().manual_seed(seed), cfg, "cpu")
+
+    def on(d):
+        return (tree_map(lambda t: t.to(d), p), AdamWState(
+            o.step.to(d), tree_map(lambda t: t.to(d), o.mu),
+            tree_map(lambda t: t.to(d), o.nu)))
+    return on("cpu"), on(dev)
+
+
+def _smoke_batch(cfg, rng, B=SMOKE_B, S=SMOKE_S, ignore=True) -> dict:
+    """numpy-drawn tokens, labels (with ``ignore``, 15% set to -1) and stub
+    inputs, as CPU tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.models.frontend import frontend_feature_shape
+    labels = rng.integers(0, cfg.vocab_size, (B, S))
+    if ignore:
+        labels[rng.random((B, S)) < 0.15] = -1
+    b = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)),
+         "labels": labels}
+    shape = frontend_feature_shape(cfg, B)
+    if shape is not None:
+        b["frames" if cfg.frontend == "audio" else "patches"] = \
+            rng.normal(size=shape).astype(np.float32)
+    return {k: torch.as_tensor(v) for k, v in b.items()}
+
+
+def _grads(params, cfg, batch) -> list:
+    from repro_torch.train.loop import loss_and_grads, make_loss_fn
+    return loss_and_grads(make_loss_fn(cfg, SMOKE_CHUNK), params, batch)[2]
+
+
+def _phase_train_card_vs_cpu(dev, smi: str) -> dict:
+    """11c: every float32 smoke config, one step on the card and on the
+    CPU (TF32 off); granite's remat policies bitwise on the card and its
+    grad_accum 4 against 1."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_smoke
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim.schedules import constant
+    from repro_torch.train.loop import make_train_step
+    rows = []
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in ARCH_IDS:
+            cfg = get_smoke(arch)
+            (cp, co), (gp, go) = _smoke_state(cfg, dev)
+            b = _smoke_batch(cfg, np.random.default_rng(7))
+            gb = {k: v.to(dev) for k, v in b.items()}
+            step = make_train_step(cfg, constant(1e-3), SMOKE_CHUNK)
+            cm, gm = step(cp, co, b)[2], step(gp, go, gb)[2]
+            worst = 0.0
+            for c, g in zip(_grads(cp, cfg, b), _grads(gp, cfg, gb)):
+                tol = GRAD_TOL * float(c.abs().max()) + 1e-6
+                worst = max(worst, float((g.cpu() - c).abs().max()) / tol)
+            rel = {k: abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k]))
+                   for k in ("loss", "grad_norm")}
+            row = {"arch": arch, "loss_rel": rel["loss"],
+                   "grad_norm_rel": rel["grad_norm"],
+                   "grad_err_over_tol": worst,
+                   "moe_dropped": float(gm["moe_dropped"]),
+                   "dropped_equal": float(gm["moe_dropped"])
+                   == float(cm["moe_dropped"])}
+            rows.append(row)
+            log(f"  smoke {arch} f32 step card vs CPU: loss rel "
+                f"{rel['loss']:.2e}, grad_norm rel {rel['grad_norm']:.2e} "
+                f"(tolerance {TRAIN_REL_TOL}), largest grad error "
+                f"{worst:.3f} x its tolerance, moe_dropped "
+                f"{row['moe_dropped']:.6f} equal {row['dropped_equal']} "
+                f"[{smi}]")
+            if max(rel.values()) > TRAIN_REL_TOL or worst > 1.0 \
+                    or not row["dropped_equal"]:
+                raise AssertionError(f"phase 11: smoke {arch} {row}")
+
+        base = get_smoke("granite-8b")
+        _, (gp, go) = _smoke_state(base, dev)
+        # every label counted, as in the reference's accumulation test (a
+        # microbatch's mean is over its own labels)
+        gb = {k: v.to(dev) for k, v in _smoke_batch(
+            base, np.random.default_rng(8), B=8, ignore=False).items()}
+        runs = {}
+        for remat, policy in ((False, "full"), (True, "full"),
+                              (True, "boundaries")):
+            cfg = dataclasses.replace(base, remat=remat, remat_policy=policy)
+            runs[f"{remat}/{policy}"] = make_train_step(
+                cfg, constant(1e-3), SMOKE_CHUNK)(gp, go, gb)
+        (p0, o0, m0), *rest = runs.values()
+        remat_same = all(
+            all(torch.equal(m0[k], m[k]) for k in m0)
+            and _trees_equal([p0, o0.mu, o0.nu], [p, o.mu, o.nu])
+            for p, o, m in rest)
+        cfg4 = dataclasses.replace(base, grad_accum=4)
+        p4, _, m4 = make_train_step(cfg4, constant(1e-3), SMOKE_CHUNK)(
+            gp, go, gb)
+        loss_diff = abs(float(m4["loss"]) - float(m0["loss"]))
+        accum_ok = loss_diff < 1e-3 and all(
+            torch.allclose(a, c, rtol=2e-2, atol=2e-4)
+            for (_, a), (_, c) in zip(tree_leaves(p4), tree_leaves(p0)))
+        log(f"  granite smoke on the card: remat off / full / boundaries "
+            f"bitwise {remat_same}; grad_accum 4 vs 1: loss diff "
+            f"{loss_diff:.2e}, params within rtol 2e-2 / atol 2e-4 "
+            f"{accum_ok} [{smi}]")
+        if not (remat_same and accum_ok):
+            raise AssertionError("phase 11: remat or grad_accum on the card")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return {"smoke": rows, "remat_bitwise": remat_same,
+            "accum_loss_diff": loss_diff}
+
+
+def _phase_train_learns(dev, smi: str) -> dict:
+    """11d: granite smoke, 60 steps on the card on the port's token
+    pipeline: the loss must fall by more than 1.0."""
+    import torch
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.lm_ds import LmDatasetSpec, batch_at
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train.loop import init_train_state, make_train_step
+    cfg = get_smoke("granite-8b")
+    ds = LmDatasetSpec(vocab_size=cfg.vocab_size, seq_len=LEARN_S)
+    params, opt = init_train_state(torch.Generator(dev).manual_seed(0), cfg,
+                                   dev)
+    step = make_train_step(cfg, warmup_cosine(3e-3, 5, LEARN_STEPS),
+                           loss_chunk=16)
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(LEARN_STEPS):
+        t, l = batch_at(ds, 0, i, LEARN_B, device=dev)
+        params, opt, m = step(params, opt, {"tokens": t, "labels": l})
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    wall = time.perf_counter() - t0
+    log(f"  granite smoke, {LEARN_STEPS} steps of B = {LEARN_B}, S = "
+        f"{LEARN_S}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (drop "
+        f"{losses[0] - losses[-1]:.4f}, needs > 1.0) in {wall:.1f} s "
+        f"[{smi}]")
+    if not losses[-1] < losses[0] - 1.0:
+        raise AssertionError(f"phase 11: granite smoke did not learn "
+                             f"{losses[0]} -> {losses[-1]}")
+    return {"losses": losses, "wall_s": wall}
+
+
+def phase_lm_train(dev, smi: str) -> dict:
+    """Phase 11 (see the module docstring): LM training on the card."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    out, walls = {}, {}
+    for name, run in (("full_width", lambda: _phase_train_full(dev, smi)),
+                      ("launcher", lambda: _phase_train_launcher(smi)),
+                      ("card_vs_cpu",
+                       lambda: _phase_train_card_vs_cpu(dev, smi)),
+                      ("learns", lambda: _phase_train_learns(dev, smi))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        walls[name] = time.perf_counter() - t0
+        _free()
+    stray = {k: v for k, v in LAUNCHES.items() if v}
+    if stray:
+        raise AssertionError(f"phase 11: LM training launched port kernels "
+                             f"{stray}")
+    log("  phase 11 launched none of the port's eight kernels (counts set "
+        "to 0 before the phase, read after)")
+    out["part_wall_s"] = walls
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    log(f"  phase 11 wall {out['phase_wall_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f") [{smi}]")
+    return out
+
+
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
     the window kernels and the megakernel with the sparse bitmaps the main
@@ -3412,6 +3855,11 @@ def main() -> int:
     log("phase 10: LM architectures on the card (olmoe-1b-7b bf16 and int8,"
         " xlstm-1.3b, whisper-medium, internvl2-26b cut to 8 layers)")
     lm_archs = phase_lm_archs(dev, smi)
+    _free()
+
+    log("phase 11: LM training on the card (gemma3-1b at full width, the "
+        "launcher on every smoke config, card vs CPU, learning)")
+    lm_train = phase_lm_train(dev, smi)
 
     # a kernel of no serving path reports its count summed over every
     # lowering's run (phase 4 holds it at 0); the per-step scatters add the
@@ -3430,6 +3878,7 @@ def main() -> int:
                "trace": main_path["trace"], "streaming": streaming,
                "training": training, "event_path": event_path,
                "mesh": mesh, "lm_serve": lm_serve, "lm_archs": lm_archs,
+               "lm_train": lm_train,
                "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3438,7 +3887,7 @@ def main() -> int:
     log(json.dumps({k: v for k, v in summary.items()
                     if k not in ("trace", "streaming", "training",
                                  "event_path", "mesh", "lm_serve",
-                                 "lm_archs")}))
+                                 "lm_archs", "lm_train")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

@@ -33,6 +33,12 @@ FFN_MOE = "moe"
 FFN_NONE = "none"               # xLSTM blocks carry their own projections
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype a config field names (``dtype``, ``grad_dtype``,
+    ``moment_dtype``)."""
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str
@@ -109,8 +115,7 @@ class ModelConfig:
 
     @property
     def tdtype(self) -> torch.dtype:
-        return {"bfloat16": torch.bfloat16, "float32": torch.float32}[
-            self.dtype]
+        return torch_dtype(self.dtype)
 
     @property
     def lru_dim(self) -> int:

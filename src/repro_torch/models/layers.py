@@ -65,6 +65,22 @@ def tree_leaves(tree, path: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
         yield path, tree
 
 
+def tree_unflatten(tree, leaves):
+    """``tree``'s structure with its leaves replaced, in
+    :func:`tree_leaves` order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            new = {k: build(t[k]) for k in sorted(t)}
+            return {k: new[k] for k in t}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return next(it)
+
+    return build(tree)
+
+
 def tree_map(fn: Callable, tree):
     """``tree`` with every leaf replaced by ``fn(leaf)``."""
     if isinstance(tree, dict):

@@ -1,7 +1,7 @@
-"""The decoder (and encoder-decoder) stack's serving path, counterpart of
-the serving parts of ``repro.models.transformer``.
+"""The decoder (and encoder-decoder) stack, counterpart of
+``repro.models.transformer``.
 
-Three entry points:
+Four entry points:
 
   * :func:`forward`     — full-sequence forward: hidden states, the MoE
                           stats, and the per-layer contributions to the
@@ -9,7 +9,10 @@ Three entry points:
   * :func:`prefill`     — runs a prompt, fills the decode caches and
                           returns the last token's logits;
   * :func:`decode_step` — one token for every cache row, each row at its
-                          own position (continuous batching).
+                          own position (continuous batching);
+  * :func:`lm_loss`     — the training loss, its CE chunked over the
+                          sequence; with ``cfg.remat`` every layer runs
+                          under activation checkpointing.
 
 Layer kinds: global, sliding-window (local) and bidirectional attention
 with RoPE or sinusoidal positions and GQA, cross attention to an encoder
@@ -37,6 +40,8 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.sd_decode import (ffn_step_sd, rglru_step_sd,
                                         sd_state_decls)
@@ -197,12 +202,11 @@ def _moe(p: ParamTree, cfg: ModelConfig, h: torch.Tensor):
                      shared=cfg.shared_expert)
 
 
-def _layer_forward(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
-                   x: torch.Tensor, positions: torch.Tensor,
-                   enc_out: Optional[torch.Tensor] = None,
-                   want_cache: bool = False):
-    """One layer, full sequence. Returns (x, stats, cache_contrib)."""
-    stats = zero_stats(x.device)
+def _mixer_half(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
+                x: torch.Tensor, positions: torch.Tensor,
+                want_cache: bool = False):
+    """The layer's norm, mixer and residual add (the reference's
+    ``mixer_out``). Returns (x, cache_contrib)."""
     cache: Dict[str, Any] = {}
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if spec.mixer in _ATTN + (C.ATTN_BIDIR,):
@@ -218,7 +222,17 @@ def _layer_forward(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
             o, st = slstm_block(p["slstm"], h, cfg.n_heads)
         if want_cache:
             cache[spec.mixer] = st      # keyed by the mixer's name
-    x = x + o
+    return x + o, cache
+
+
+def _ffn_half(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
+              x: torch.Tensor, positions: torch.Tensor,
+              enc_out: Optional[torch.Tensor] = None,
+              want_cache: bool = False):
+    """The rest of the layer: cross attention, then the FFN. Returns (x,
+    stats, cache_contrib)."""
+    stats = zero_stats(x.device)
+    cache: Dict[str, Any] = {}
     if spec.cross_attn:
         hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
         o, (ck, cv) = _attention(p["cross"], cfg, C.ATTN_BIDIR, hc,
@@ -234,6 +248,39 @@ def _layer_forward(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
         o, stats = _moe(p["moe"], cfg, h)
         x = x + o
     return x, stats, cache
+
+
+def _layer_forward(p: ParamTree, cfg: ModelConfig, spec: LayerSpec,
+                   x: torch.Tensor, positions: torch.Tensor,
+                   enc_out: Optional[torch.Tensor] = None,
+                   want_cache: bool = False):
+    """One layer, full sequence. Returns (x, stats, cache_contrib).
+
+    Under autograd with ``cfg.remat`` (and no cache wanted) the layer runs
+    under non-reentrant activation checkpointing: ``"full"`` keeps only
+    its input and recomputes the rest in the backward pass;
+    ``"boundaries"`` also keeps the mixer half's output (the reference's
+    ``save_only_these_names("mixer_out", "layer_out")``).  Remat changes
+    what is kept, never a value."""
+    if not (cfg.remat and torch.is_grad_enabled()) or want_cache:
+        x, cache = _mixer_half(p, cfg, spec, x, positions, want_cache)
+        x, stats, c2 = _ffn_half(p, cfg, spec, x, positions, enc_out,
+                                 want_cache)
+        return x, stats, {**cache, **c2}
+
+    def mixer(x):
+        return _mixer_half(p, cfg, spec, x, positions)[0]
+
+    def ffn(x):
+        return _ffn_half(p, cfg, spec, x, positions, enc_out)[:2]
+
+    if cfg.remat_policy == "boundaries":
+        x = checkpoint(mixer, x, use_reentrant=False)
+        x, stats = checkpoint(ffn, x, use_reentrant=False)
+    else:
+        x, stats = checkpoint(lambda x: ffn(mixer(x)), x,
+                              use_reentrant=False)
+    return x, stats, {}
 
 
 def _group_stats(cfg: ModelConfig, layer_stats: List[MoeStats]) -> MoeStats:
@@ -287,7 +334,9 @@ def forward(params: ParamTree, cfg: ModelConfig, tokens: torch.Tensor,
     of the wrong length from it)."""
     check_supported(cfg)
     S = tokens.shape[1]
-    x = params["embed"][tokens]
+    # F.embedding, not indexing: its backward sums a token's rows in one
+    # fixed order on both devices (index_put_'s CPU accumulation does not)
+    x = F.embedding(tokens, params["embed"])
     if cfg.frontend == "vision":
         if patches is None:
             raise ValueError(f"{cfg.name}: the vision stub needs patches=")
@@ -325,6 +374,70 @@ def unembed(params: ParamTree, cfg: ModelConfig,
     if cfg.tie_embeddings:
         return x @ params["embed"].to(dt).T
     return x @ params["lm_head"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over the sequence so the (B, S, V) logits never exist)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_nll(params: ParamTree, cfg: ModelConfig, xb: torch.Tensor,
+               lb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's summed NLL over the labels >= 0, and their count.
+
+    xb: (B, C, d) hidden states; lb: (B, C) labels, < 0 ignored.  The
+    logits run in float32 with the padded vocabulary tail at -1e30.
+    ``cfg.vp_loss`` takes the reference's vocab-parallel form,
+    ``logsumexp - target`` (it rounds otherwise than ``log_softmax`` and a
+    gather)."""
+    vocab = cfg.vocab_size
+    logits = unembed(params, cfg, xb).float()
+    iota = torch.arange(cfg.vocab_padded, device=xb.device)
+    if cfg.vp_loss:
+        logits = torch.where(iota < vocab, logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.sum(torch.where(iota == lb[..., None], logits, 0.0),
+                        dim=-1)
+        nll = lse - tgt
+    else:
+        if cfg.vocab_padded > vocab:
+            logits = torch.where(iota < vocab, logits, -1e30)
+        logp = torch.log_softmax(logits, dim=-1)
+        # jnp.take_along_axis wraps a negative label, torch.gather raises
+        # on one: clamp it, the ``ok`` mask zeroes its term either way
+        nll = -torch.gather(logp, -1, lb.clamp(min=0)[..., None])[..., 0]
+    ok = (lb >= 0).float()
+    return torch.sum(nll * ok), torch.sum(ok)
+
+
+def lm_loss(params: ParamTree, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
+            loss_chunk: int = 512) -> Tuple[torch.Tensor,
+                                            Dict[str, torch.Tensor]]:
+    """Causal-LM loss: the mean NLL of the labels >= 0, plus
+    ``router_aux_coef · aux_loss`` with MoE layers.  Returns (loss,
+    {"ce", "aux_loss", "moe_dropped", "tokens"}).
+
+    The CE runs over ``S // loss_chunk`` sequence chunks in order, each
+    under non-reentrant checkpointing (the reference's ``jax.checkpoint``
+    in a scan), so the (B, C, V) float32 logits exist for one chunk at a
+    time and are recomputed in the backward pass."""
+    x, stats, _ = forward(params, cfg, tokens, frames, patches)
+    S = x.shape[1]
+    CS = min(loss_chunk, S)
+    assert S % CS == 0, f"sequence {S} is not a multiple of chunk {CS}"
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    denom = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, CS):
+        args = (params, cfg, x[:, i:i + CS], labels[:, i:i + CS])
+        nll, n = (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                  if torch.is_grad_enabled() else _chunk_nll(*args))
+        total, denom = total + nll, denom + n
+    ce = total / torch.clamp(denom, min=1.0)
+    loss = ce + cfg.router_aux_coef * stats.aux_loss if cfg.n_experts else ce
+    return loss, {"ce": ce, "aux_loss": stats.aux_loss,
+                  "moe_dropped": stats.dropped_frac, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------

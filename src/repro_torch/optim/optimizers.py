@@ -3,7 +3,8 @@
 Counterpart of ``repro.optim.optimizers``, with its arithmetic in its
 order: the global-norm clip first, then ``mu·b1 + g·(1 − b1)``,
 ``nu·b2 + g²·(1 − b2)``, the bias corrections, ``delta = mhat / (sqrt(nhat)
-+ eps) + wd·p`` and ``p − lr·delta``; the step counter is int32 and the
++ eps) + wd·p`` and ``p − lr·delta``, the moments updated in float32 and
+stored back in their own dtype; the step counter is int32 and the
 learning rate a float32 tensor.  (``torch.optim.AdamW`` decays before the
 moment step: a different recipe.)  Updates run without autograd and return
 new tensors; nothing is updated in place.
@@ -48,14 +49,16 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
     return [(g.to(torch.float32) * scale).to(g.dtype) for g in grads], norm
 
 
-def adamw_init(params: Sequence[torch.Tensor]) -> AdamWState:
-    """Zero moments (float32) and step 0."""
+def adamw_init(params: Sequence[torch.Tensor],
+               moment_dtype: torch.dtype = torch.float32) -> AdamWState:
+    """Zero moments in ``moment_dtype`` (float32 by default; bfloat16 for
+    the configs whose float32 moments would not fit) and step 0."""
     dev = params[0].device
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        mu=[torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        mu=[torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
             for p in params],
-        nu=[torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        nu=[torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
             for p in params])
 
 
@@ -80,15 +83,15 @@ def adamw_update(grads: Sequence[torch.Tensor], state: AdamWState,
     new_p, new_mu, new_nu = [], [], []
     for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
         g32 = g.to(torch.float32)
-        mu32 = mu * b1 + g32 * (1.0 - b1)
-        nu32 = nu * b2 + torch.square(g32) * (1.0 - b2)
+        mu32 = mu.to(torch.float32) * b1 + g32 * (1.0 - b1)
+        nu32 = nu.to(torch.float32) * b2 + torch.square(g32) * (1.0 - b2)
         mhat = mu32 / bc1
         nhat = nu32 / bc2
         delta = (mhat / (torch.sqrt(nhat) + eps)
                  + weight_decay * p.to(torch.float32))
         new_p.append((p.to(torch.float32) - lr * delta).to(p.dtype))
-        new_mu.append(mu32)
-        new_nu.append(nu32)
+        new_mu.append(mu32.to(mu.dtype))
+        new_nu.append(nu32.to(nu.dtype))
     return new_p, AdamWState(step, new_mu, new_nu), {"grad_norm": gnorm}
 
 

@@ -12,10 +12,13 @@ Layout:  <dir>/step_<N>/
 * the data cursor and step counter ride in the manifest's ``extras``, so a
   restart resumes without replaying data.
 
-A tree is any nesting of tuples, lists and NamedTuples with tensor
-leaves; a leaf's name is its path (``1/mu/0``), as the reference names
-pytree paths.  :func:`restore` puts each leaf on the device and dtype of
-the matching leaf of its target.
+A tree is any nesting of dicts, tuples, lists and NamedTuples with tensor
+leaves; a leaf's name is its path (``1/mu/0``, ``0/layers/3/attn/wq``), as
+the reference names pytree paths (dict keys sorted, as JAX flattens
+them).  A bfloat16 leaf is stored as its 16-bit pattern (numpy has no
+bfloat16) with ``"bfloat16"`` in the manifest, and restored bitwise.
+:func:`restore` puts each leaf on the device and dtype of the matching
+leaf of its target.
 """
 from __future__ import annotations
 
@@ -28,26 +31,46 @@ import numpy as np
 import torch
 
 
+def _children(tree: Any) -> List[Tuple[Any, Any]]:
+    """``(key, child)`` pairs of a container: a dict's in sorted key order,
+    a NamedTuple's by field name, a tuple's or list's by index."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    return list(enumerate(tree))
+
+
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
     """``(path, leaf)`` pairs in a fixed order."""
     if isinstance(tree, torch.Tensor):
         return [(prefix, tree)]
-    items = (zip(tree._fields, tree) if hasattr(tree, "_fields")
-             else enumerate(tree))
     out = []
-    for k, v in items:
+    for k, v in _children(tree):
         out += _flatten(v, f"{prefix}/{k}" if prefix else str(k))
     return out
 
 
 def _unflatten(tree: Any, leaves) -> Any:
-    """``tree``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
+    """``tree``'s structure with its leaves taken in :func:`_flatten`'s
+    order from the iterator ``leaves``."""
     if isinstance(tree, torch.Tensor):
         return next(leaves)
+    if isinstance(tree, dict):
+        new = {k: _unflatten(v, leaves) for k, v in _children(tree)}
+        return {k: new[k] for k in tree}
     if hasattr(tree, "_fields"):
         return type(tree)(*(_unflatten(v, leaves) for v in tree))
     return type(tree)(_unflatten(v, leaves) for v in tree)
+
+
+def _to_numpy(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """The array stored for ``leaf`` and the dtype the manifest names."""
+    leaf = leaf.detach().cpu()
+    if leaf.dtype == torch.bfloat16:
+        return leaf.view(torch.int16).numpy(), "bfloat16"
+    arr = leaf.numpy()
+    return arr, str(arr.dtype)
 
 
 def save(ckpt_dir: str, step: int, tree: Any,
@@ -61,12 +84,12 @@ def save(ckpt_dir: str, step: int, tree: Any,
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": [], "extras": extras or {}}
     for name, leaf in _flatten(tree):
-        arr = leaf.detach().cpu().numpy()
+        arr, dtype = _to_numpy(leaf)
         fn = name.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fn), arr)
         manifest["leaves"].append(
             {"name": name, "file": fn, "shape": list(arr.shape),
-             "dtype": str(arr.dtype)})
+             "dtype": dtype})
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     if os.path.exists(final):
@@ -110,6 +133,8 @@ def restore(ckpt_dir: str, step: int, target: Any
         if tuple(arr.shape) != tuple(tgt.shape):
             raise ValueError(f"{name}: checkpoint shape {arr.shape} != "
                              f"target {tuple(tgt.shape)}")
-        out.append(torch.from_numpy(arr).to(device=tgt.device,
-                                            dtype=tgt.dtype))
+        t = torch.from_numpy(arr)
+        if meta["dtype"] == "bfloat16":
+            t = t.view(torch.bfloat16)
+        out.append(t.to(device=tgt.device, dtype=tgt.dtype))
     return _unflatten(target, iter(out)), manifest["extras"]

@@ -14,12 +14,15 @@ For the LM substrate, :func:`lm_params_from_numpy` and
 cache trees as numpy (nested dicts whose per-layer leaves are stacked by
 scan group, ``groups/g{i}/l{j}``, and the encoder's by ``encoder/groups/
 g0/l0``) and unstack them into the port's one-entry-per-layer trees, each
-leaf checked against the port's own declarations.  A tree the reference's
+leaf checked against the port's own declarations
+(:func:`lm_train_state_from_numpy` does the same for a training state, its
+AdamW moments included).  A tree the reference's
 ``quantize_params`` made crosses too: each stacked ``__q`` is split along
 its layer axis, and every layer of the stack gets the shared ``__s``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,10 +32,11 @@ from repro_torch.core.econv import EConvParams
 from repro_torch.core.sne_net import SNNSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import tree_leaves
+from repro_torch.models.config import ModelConfig, torch_dtype
+from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.quant_lm import (Q_KEY, S_KEY, is_qleaf,
                                          quantize_model_decls)
+from repro_torch.optim.optimizers import AdamWState
 
 NET_FORMAT_VERSION = 1
 
@@ -145,13 +149,10 @@ def _from_decls(tree: Any, decls: Any, dev: torch.device,
                                                         dtype=decls.dtype)
 
 
-def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                         device=None) -> Dict[str, Any]:
-    """The reference's LM parameter tree (numpy leaves) as the port's
-    parameters on ``device`` (default: the CUDA device), in
-    ``cfg.tdtype``; a quantised tree (the reference's ``quantize_params``)
-    as the port's ``quant_lm.quantize_model`` storage."""
-    dev = resolve_device(device)
+def _per_layer(tree: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """A reference model tree (params, or moments of their shape) with its
+    scan groups unstacked into ``layers`` (and the encoder's into
+    ``encoder/layers``)."""
     flat = {k: v for k, v in tree.items() if k not in ("groups", "encoder")}
     flat["layers"] = _unstack_groups(tree["groups"], cfg)
     if "encoder" in tree:
@@ -159,10 +160,45 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         n = cfg.encoder.n_layers if cfg.encoder is not None else 0
         flat["encoder"] = {"final_norm": tree["encoder"]["final_norm"],
                            "layers": [_layer_of(g, r) for r in range(n)]}
+    return flat
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                         device=None) -> Dict[str, Any]:
+    """The reference's LM parameter tree (numpy leaves) as the port's
+    parameters on ``device`` (default: the CUDA device), in
+    ``cfg.tdtype``; a quantised tree (the reference's ``quantize_params``)
+    as the port's ``quant_lm.quantize_model`` storage."""
+    dev = resolve_device(device)
+    flat = _per_layer(tree, cfg)
     decls = T.model_decls(cfg)
     if is_qleaf(tree.get("embed")):
         decls = quantize_model_decls(decls)
     return _from_decls(flat, decls, dev)
+
+
+def lm_train_state_from_numpy(params: Dict[str, Any], opt_state: Any,
+                              cfg: ModelConfig, device=None
+                              ) -> Tuple[Dict[str, Any], AdamWState]:
+    """The reference's ``init_train_state`` output (or a later training
+    state) as the port's: ``params`` (numpy leaves, scan groups stacked)
+    through :func:`lm_params_from_numpy`, and ``opt_state`` (the
+    reference's ``AdamWState(step, mu, nu)``, its moments trees of the
+    params' shape) as an ``AdamWState`` whose moments are unstacked the
+    same way, in ``cfg.moment_dtype``, on ``device`` (default: the CUDA
+    device)."""
+    dev = resolve_device(device)
+    moment_dtype = torch_dtype(cfg.moment_dtype)
+    decls = tree_map(lambda d: dataclasses.replace(d, dtype=moment_dtype),
+                     T.model_decls(cfg))
+
+    def moments(tree):
+        return _from_decls(_per_layer(tree, cfg), decls, dev)
+
+    step = torch.tensor(int(np.asarray(opt_state.step)), dtype=torch.int32,
+                        device=dev)
+    return (lm_params_from_numpy(params, cfg, dev),
+            AdamWState(step, moments(opt_state.mu), moments(opt_state.nu)))
 
 
 def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,

@@ -21,12 +21,19 @@ from repro_torch.core.policies import ExecutionPolicy
 from repro_torch.core.sne_net import (default_capacities, event_apply,
                                       event_predict, init_snn, tiny_net)
 from repro_torch.data.events_ds import TINY, batch_at, sample_recording_path
+from repro_torch.data.lm_ds import LmDatasetSpec
+from repro_torch.data.lm_ds import batch_at as lm_batch_at
+from repro_torch.data.lm_ds import stream as lm_stream
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
+from repro_torch.optim.schedules import constant
+from repro_torch.train.loop import init_train_state, train_loop
 from repro_torch.models.transformer import init_cache, init_model
 from repro_torch.serve import EventServeEngine, ServeEngine
 from repro_torch.train.snn_loop import (TrainConfig, evaluate, fit,
                                         load_trained_tiny)
-from repro_torch.weights import (lm_params_from_numpy, load_net,
+from repro_torch.weights import (lm_params_from_numpy,
+                                 lm_train_state_from_numpy, load_net,
                                  params_from_numpy)
 
 torch.set_num_threads(1)
@@ -80,6 +87,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/core/lm_events.py",
             "src/repro_torch/serve/engine.py",
             "src/repro_torch/launch/serve.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/train/loop.py",
+            "src/repro_torch/data/lm_ds.py",
+            "src/repro_torch/weights.py",
             "chip_smoke.py"} <= scanned
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in PORT_FILES}
@@ -111,7 +122,10 @@ def no_cuda():
                                    "lm_params_from_numpy", "launch_serve",
                                    "lm_engine_moe", "lm_engine_xlstm",
                                    "init_model_encoder", "init_cache_xlstm",
-                                   "launch_serve_moe"])
+                                   "launch_serve_moe", "init_train_state",
+                                   "train_loop", "lm_batch_at", "lm_stream",
+                                   "launch_train", "launch_train_stub",
+                                   "lm_train_state_from_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
@@ -164,6 +178,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
                                                16),
         "launch_serve_moe": lambda: launch_serve.main(
             ["--arch", "llama4-maverick-400b-a17b", "--requests", "1"]),
+        "init_train_state": lambda: init_train_state(torch.Generator(),
+                                                     lm_cfg),
+        "train_loop": lambda: train_loop(lm_cfg, iter([]), 1,
+                                         constant(1e-3)),
+        "lm_batch_at": lambda: lm_batch_at(LmDatasetSpec(512, 8), 0, 0, 2),
+        "lm_stream": lambda: next(lm_stream(LmDatasetSpec(512, 8), 0, 2)),
+        "launch_train": lambda: launch_train.main(
+            ["--arch", "gemma3-1b", "--smoke", "--steps", "1"]),
+        "launch_train_stub": lambda: launch_train.main(
+            ["--arch", "whisper-medium", "--smoke", "--steps", "1"]),
+        "lm_train_state_from_numpy": lambda: lm_train_state_from_numpy(
+            {}, None, lm_cfg),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
