@@ -199,6 +199,40 @@ non-zero):
    d. granite smoke, 60 steps on the card: the loss falls by more than
       1.0 (the reference's ``test_lm_training_learns``).
    Its numbers are kept under ``"lm_train"``.
+12. the sharded LM paths on meshes of repeated ``cuda:0`` (``Mesh(shape,
+   devices=["cuda:0"] * n)``; weights drawn on the card from
+   ``torch.Generator("cuda")`` seeded 0, each model freed before the
+   next; the phase launches none of the port's eight kernels, counts set
+   to 0 before it and read after):
+   a. olmoe-1b-7b at full width, bf16, ``forward`` of B = 4, S = 512 with
+      ``moe_impl="shardmap"`` on (data, model) = (1, 4) and (2, 2), and on
+      (1, 4) with ``seq_shard``: every layer's shard-map call against
+      ``moe_apply`` on each token shard's tokens (outputs within
+      ``_bf16_tol``, kept (expert, token) routes equal, ``dropped_frac``
+      equal to the mean of the shards' fractions), each forward twice
+      bitwise; then 4 requests on ``ServeEngine`` with the shard-map
+      config on (1, 4), teacher-forced for 16 decode steps to the gather
+      engine's tokens, logits within ``_bf16_tol`` of its, both p50 steps;
+   b. recurrentgemma-2b at full width on ``ServeEngine`` (B = 4) under a
+      (4, 1) mesh: at ``sd_decode_frac=1.0`` 16 teacher-forced steps
+      within ``_bf16_tol`` of the unsharded sd engine; at 0.25 the drift
+      against the dense engine beside the unsharded drift, and the events
+      per RG-LRU layer and token;
+   c. granite-8b at full width, bf16, ``forward`` of B = 1, S = 4096
+      (4 q chunks of 1024) with ``causal_fold`` on and off, twice each:
+      all four outputs bitwise equal; both times;
+   d. ``flash_decode_shardmap`` at granite-8b's attention shape (B = 4,
+      H = 32, Hk = 8, hd = 128, a bf16 cache of S = 32768) with the
+      sequence over "model" on (1, 4) and with batch and sequence on
+      (2, 2), twice bitwise, within ``_bf16_tol`` of ``decode_attention``;
+      both times;
+   e. ``ef_compress`` over a float32 gradient tree shaped like full-width
+      gemma3-1b (999,812,736 values), 3 error-feedback steps, the first
+      step's codes and scales of the embedding and layer 0 equal to the
+      CPU's bitwise, ``compression_ratio``; ``int8_psum`` over a (4, 1)
+      mesh equal to the CPU's bitwise and within ``n_shards * scale / 2``
+      of the float32 psum.
+   Its numbers are kept under ``"lm_sharded"``.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -3751,6 +3785,507 @@ def phase_lm_train(dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded LM paths (meshes on repeated cuda:0)
+# ---------------------------------------------------------------------------
+
+SHARD_ARCH = "olmoe-1b-7b"
+SHARD_MESHES = (((1, 4), False), ((2, 2), False), ((1, 4), True))
+SHARD_B, SHARD_S = 4, 512
+SHARD_PROMPT_LENS, SHARD_STEPS = (128, 512), 16
+SD_MESH = (4, 1)
+FOLD_ARCH, FOLD_S = "granite-8b", 4096
+FD_B, FD_H, FD_HK, FD_HD, FD_S, FD_POS = 4, 32, 8, 128, 32768, 30000
+FD_MESHES = (((1, 4), ("model",), None), ((2, 2), ("model",), "data"))
+COMP_ARCH, COMP_STEPS, PSUM_ROWS = "gemma3-1b", 3, 1 << 22
+PR22_SD_DRIFT = 6.984   # PERF.md, PR 22's phase 9 (8 requests, 32 tokens)
+
+
+def _mesh_on(shape, dev):
+    from repro_torch.distributed import Mesh
+    return Mesh(shape, ("data", "model"), [dev] * (shape[0] * shape[1]))
+
+
+@contextlib.contextmanager
+def _installed(mesh, seq_shard=False):
+    from repro_torch.distributed import sharding as S
+    S.set_mesh_rules(mesh, S.default_rules(False, seq_shard=seq_shard))
+    try:
+        yield mesh
+    finally:
+        S.clear_mesh_rules()
+
+
+def _route_keys(out, n_tokens):
+    """A dispatch's kept (expert, token) routes as sorted keys ``e * T +
+    t`` (on the device)."""
+    import torch
+    _, idx, valid = out
+    e = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return torch.sort((e * n_tokens + idx)[valid > 0]).values
+
+
+@contextlib.contextmanager
+def _dispatch_keys():
+    """Records the kept routes of every ``moe.dispatch`` call while open
+    (``_route_keys``)."""
+    from repro_torch.models import moe
+    keys, own = [], moe.dispatch
+
+    def dispatch(sel, capacity):
+        out = own(sel, capacity)
+        keys.append(_route_keys(out, sel.shape[0]))
+        return out
+    moe.dispatch = dispatch
+    try:
+        yield keys
+    finally:
+        moe.dispatch = own
+
+
+@contextlib.contextmanager
+def _shardmap_calls():
+    """Records every ``moe_apply_shardmap`` call while open: its params,
+    input, output, stats and each shard's kept routes (one ``dispatch``
+    a shard, in shard order)."""
+    from repro_torch.models import transformer as T
+    calls, own = [], T.moe_apply_shardmap
+
+    def shardmap(p, x, **kw):
+        first = len(keys)
+        out, st = own(p, x, **kw)
+        calls.append({"p": p, "x": x, "out": out, "stats": st,
+                      "routes": keys[first:], "kw": kw})
+        return out, st
+    T.moe_apply_shardmap = shardmap
+    try:
+        with _dispatch_keys() as keys:
+            yield calls
+    finally:
+        T.moe_apply_shardmap = own
+
+
+def _shardmap_vs_moe_apply(call) -> dict:
+    """One layer's shard-map call against ``moe_apply`` on each token
+    shard's tokens: outputs within ``_bf16_tol``, kept routes equal, and
+    ``dropped_frac`` equal to the mean of the token shards' fractions (in
+    the pmean's order)."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import PartitionSpec as P
+    from repro_torch.models import moe
+    kw = dict(call["kw"])
+    mesh, seq = kw.pop("mesh"), kw.pop("seq_shard")
+    kw.pop("model_axis", None)
+    axes = ("data", "model") if seq else ("data",)
+    spec = P("data", "model" if seq else None, None)
+    xs = col.split(call["x"], spec, mesh)
+    outs = col.split(call["out"], spec, mesh)
+    worst, bitwise, fracs, ref = 0.0, 0, [], {}
+    for s in range(mesh.size):
+        key = col.axis_index(mesh, axes, s)
+        if key not in ref:
+            with _dispatch_keys() as seen:
+                o, st = moe.moe_apply(call["p"], xs[s], **kw)
+            ref[key] = (o, st, seen[0])
+            fracs.append(st.dropped_frac)
+        o, _, keys = ref[key]
+        if not torch.equal(call["routes"][s], keys):
+            raise AssertionError(f"phase 12: shard {s}'s kept routes differ "
+                                 f"from moe_apply's on its tokens")
+        diff = float((outs[s].float() - o.float()).abs().max())
+        tol = _bf16_tol(np.float32(o.float().abs().max().item()), 1)
+        if diff > tol:
+            raise AssertionError(f"phase 12: shard {s} output {diff} > {tol}")
+        worst = max(worst, diff / tol)
+        bitwise += int(torch.equal(outs[s], o))
+    mean = fracs[0]
+    for f in fracs[1:]:
+        mean = mean + f
+    mean = mean / len(fracs)
+    if not torch.equal(call["stats"].dropped_frac, mean):
+        raise AssertionError(f"phase 12: dropped_frac "
+                             f"{float(call['stats'].dropped_frac)} != the "
+                             f"mean of the shards' {float(mean)}")
+    return {"worst_over_tol": worst, "bitwise_shards": bitwise,
+            "shards": mesh.size, "token_shards": len(ref),
+            "dropped_frac": float(mean)}
+
+
+def _sharded_moe(dev, smi: str) -> dict:
+    """12a: olmoe-1b-7b's shard-map forward on three meshes, each layer
+    against per-shard ``moe_apply``, twice bitwise; then the shard-map
+    engine on (1, 4) against the gather engine."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(SHARD_ARCH)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, size=(SHARD_B, SHARD_S))).to(dev)
+    gather_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x_gather, _, _ = T.forward(params, cfg, toks)
+        torch.cuda.synchronize()
+        gather_ms.append(1e3 * (time.perf_counter() - t0))
+    log(f"  {SHARD_ARCH} gather forward B={SHARD_B} S={SHARD_S}: "
+        f"{gather_ms[0]:.1f} / {gather_ms[1]:.1f} ms [{smi}]")
+    out = {"arch": SHARD_ARCH, "B": SHARD_B, "S": SHARD_S,
+           "gather_forward_ms": gather_ms, "runs": []}
+    for shape, seq in SHARD_MESHES:
+        scfg = dataclasses.replace(cfg, moe_impl="shardmap", seq_shard=seq)
+        mesh = _mesh_on(shape, dev)
+        with _installed(mesh, seq):
+            runs, ms = [], []
+            for _ in range(2):
+                with _shardmap_calls() as calls, torch.no_grad():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    x, st, _ = T.forward(params, scfg, toks)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                runs.append((x, st, calls))
+        (x1, st1, calls), (x2, st2, _) = runs
+        if not (torch.equal(x1, x2) and torch.equal(st1.dropped_frac,
+                                                    st2.dropped_frac)):
+            raise AssertionError(f"phase 12: the {shape} forward does not "
+                                 f"repeat bitwise")
+        if len(calls) != cfg.n_layers:
+            raise AssertionError(f"phase 12: {len(calls)} shard-map calls "
+                                 f"for {cfg.n_layers} layers")
+        layers = [_shardmap_vs_moe_apply(c) for c in calls]
+        diff_gather = float((x1.float() - x_gather.float()).abs().max())
+        row = {"mesh": list(shape), "seq_shard": seq, "forward_ms": ms,
+               "bitwise_repeat": True,
+               "worst_layer_over_tol": max(r["worst_over_tol"]
+                                           for r in layers),
+               "bitwise_layer_shards": sum(r["bitwise_shards"]
+                                           for r in layers),
+               "layer_shards": sum(r["shards"] for r in layers),
+               "dropped_frac": float(st1.dropped_frac),
+               "aux_loss": float(st1.aux_loss),
+               "max_diff_vs_gather_forward": diff_gather}
+        out["runs"].append(row)
+        log(f"  {SHARD_ARCH} shard-map forward B={SHARD_B} S={SHARD_S} on "
+            f"{shape}{' seq_shard' if seq else ''}: {ms[0]:.1f} / "
+            f"{ms[1]:.1f} ms, bitwise twice; every layer's shards equal "
+            f"moe_apply on their tokens (routes equal, outputs "
+            f"{row['bitwise_layer_shards']} of {row['layer_shards']} "
+            f"bitwise, worst {row['worst_layer_over_tol']:.3f} x _bf16_tol);"
+            f" dropped_frac {row['dropped_frac']:.6f}, |x - gather forward| "
+            f"{diff_gather:.4f} [{smi}]")
+        del runs, calls, x1, x2
+        _free()
+
+    # the shard-map engine on (1, 4) against the gather engine
+    reqs = _lm_requests(cfg, n=LM_SLOTS, lens=SHARD_PROMPT_LENS,
+                        max_tokens=SHARD_STEPS + 1)
+    _lm_serve(cfg, params, dev, cache_len=1024, reqs=_lm_requests(
+        cfg, n=1, lens=(64, 64), max_tokens=4))            # warm-up
+    eng, plain, reqs, _ = _lm_serve(cfg, params, dev, cache_len=1024,
+                                    reqs=reqs)
+    tokens = {r.uid: r.out_tokens for r in reqs}
+    scfg = dataclasses.replace(cfg, moe_impl="shardmap")
+    with _installed(_mesh_on((1, 4), dev)):
+        seng, rec, _, _ = _lm_serve(scfg, params, dev, forced=tokens,
+                                    cache_len=1024, reqs=_lm_requests(
+                                        cfg, n=LM_SLOTS,
+                                        lens=SHARD_PROMPT_LENS,
+                                        max_tokens=SHARD_STEPS + 1))
+    if seng.stats != eng.stats:
+        raise AssertionError(f"phase 12: engine stats {seng.stats} != "
+                             f"{eng.stats}")
+    against = _lm_against(rec, plain, cfg.n_layers, "shard-map engine")
+    if against["worst_diff_over_tol"] > 1.0:
+        raise AssertionError(f"phase 12: shard-map engine logits "
+                             f"{against['worst_diff_over_tol']} x tol")
+    out["engine"] = {"mesh": [1, 4], "steps": len(rec.step_s),
+                     "p50_step_ms": rec.p50_step_ms(),
+                     "gather_p50_step_ms": plain.p50_step_ms(), **against}
+    log(f"  shard-map ServeEngine on (1, 4), {LM_SLOTS} requests "
+        f"({[len(r.prompt) for r in reqs]} prompt tokens), teacher-forced "
+        f"{SHARD_STEPS} steps: logits within "
+        f"{against['worst_diff_over_tol']:.3f} x _bf16_tol of the gather "
+        f"engine's, {against['same_tokens']} of {against['calls']} own "
+        f"tokens equal; p50 step "
+        f"{rec.p50_step_ms():.3f} ms (gather {plain.p50_step_ms():.3f} ms) "
+        f"[{smi}]")
+    del params, eng, seng
+    _free()
+    return out
+
+
+def _sd_events(cfg, frac: float, n_data: int) -> dict:
+    """Input events (weight rows read) per RG-LRU layer and token, over
+    its four event sets (x1 drives w_in and w_gate, x2 w_out, xf the FFN's
+    gate and up, xd its down), unsharded and at ``n_data`` row shards."""
+    from repro_torch.core.sd_decode import sd_cap
+    sets = ((cfg.d_model, 2 * cfg.lru_dim), (cfg.lru_dim, cfg.d_model),
+            (cfg.d_model, 2 * cfg.d_ff), (cfg.d_ff, cfg.d_model))
+    plain = sharded = rows_plain = rows_sharded = 0
+    for d_in, d_out in sets:
+        cap = sd_cap(d_in, frac)
+        local = max(4, min(d_in // n_data, -(-cap // n_data)))
+        plain += cap
+        sharded += n_data * local
+        rows_plain += cap * d_out
+        rows_sharded += n_data * local * d_out
+    return {"events": plain, "events_sharded": sharded,
+            "weight_bytes": 2 * rows_plain,
+            "weight_bytes_sharded": 2 * rows_sharded}
+
+
+def _sharded_sd(dev, smi: str) -> dict:
+    """12b: recurrentgemma-2b's row-sharded sigma-delta decode under a
+    (4, 1) mesh against the unsharded engine."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(LM_ARCH)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+
+    def reqs():
+        return _lm_requests(cfg, n=LM_SLOTS, lens=SHARD_PROMPT_LENS,
+                            max_tokens=SHARD_STEPS + 1)
+    _, dense, rs, _ = _lm_serve(cfg, params, dev, cache_len=1024,
+                                reqs=reqs())
+    tokens = {r.uid: r.out_tokens for r in rs}
+    out = {"arch": LM_ARCH, "mesh": list(SD_MESH)}
+    for frac in (1.0, LM_SD_FRAC):
+        sd = dataclasses.replace(cfg, sd_decode_frac=frac)
+        _, plain, _, _ = _lm_serve(sd, params, dev, forced=tokens,
+                                   cache_len=1024, reqs=reqs())
+        with _installed(_mesh_on(SD_MESH, dev)):
+            _, shard, _, _ = _lm_serve(sd, params, dev, forced=tokens,
+                                       cache_len=1024, reqs=reqs())
+        drift = [max(float(np.abs(lg - d).max()) for (_, lg, _), (
+            _, d, _) in zip(r.calls, dense.calls)) for r in (plain, shard)]
+        row = {"frac": frac, "drift_vs_dense": drift[1],
+               "unsharded_drift_vs_dense": drift[0],
+               "p50_step_ms": shard.p50_step_ms(),
+               "unsharded_p50_step_ms": plain.p50_step_ms(),
+               **_sd_events(cfg, frac, SD_MESH[0])}
+        if frac == 1.0:
+            row.update(_lm_against(shard, plain, cfg.n_layers,
+                                   "sharded sd 1.0"))
+            if row["worst_diff_over_tol"] > 1.0:
+                raise AssertionError(f"phase 12: sharded sd 1.0 "
+                                     f"{row['worst_diff_over_tol']} x tol")
+        out[str(frac)] = row
+        log(f"  {LM_ARCH} sd_decode_frac {frac} on {SD_MESH}: drift vs "
+            f"dense {drift[1]:.4f} (unsharded {drift[0]:.4f}; PR 22's "
+            f"phase 9: {PR22_SD_DRIFT}), events per RG-LRU layer and token "
+            f"{row['events_sharded']} (unsharded {row['events']}), "
+            f"{row['weight_bytes_sharded'] / 1e6:.3f} MB of weights; p50 "
+            f"step {row['p50_step_ms']:.3f} ms (unsharded "
+            f"{row['unsharded_p50_step_ms']:.3f})"
+            + (f"; within {row['worst_diff_over_tol']:.3f} x _bf16_tol of "
+               f"the unsharded sd engine" if frac == 1.0 else "")
+            + f" [{smi}]")
+    del params
+    _free()
+    return out
+
+
+def _folded(dev, smi: str) -> dict:
+    """12c: granite-8b's forward at S = 4096, folded against plain."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config(FOLD_ARCH)
+    params = T.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                          dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        2, cfg.vocab_size, size=(1, FOLD_S))).to(dev)
+    res = {}
+    for fold in (False, True, True, False):
+        c = dataclasses.replace(cfg, causal_fold=fold)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x, _, _ = T.forward(params, c, toks)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if fold in res and not torch.equal(res[fold][0], x):
+            raise AssertionError(f"phase 12: fold={fold} does not repeat")
+        res.setdefault(fold, [x, []])[1].append(ms)
+    if not torch.equal(res[True][0], res[False][0]):
+        raise AssertionError("phase 12: the folded forward differs from the "
+                             "plain one")
+    nq = FOLD_S // cfg.attn_chunk_q
+    out = {"arch": FOLD_ARCH, "S": FOLD_S, "Nq": nq,
+           "kv_blocks_fold": nq * (nq + 1) // 2, "kv_blocks_plain": nq * nq,
+           "fold_ms": res[True][1], "plain_ms": res[False][1],
+           "bitwise": True}
+    log(f"  {FOLD_ARCH} forward B=1 S={FOLD_S} (Nq {nq}): causal_fold "
+        f"{res[True][1][0]:.1f} / {res[True][1][1]:.1f} ms, plain "
+        f"{res[False][1][0]:.1f} / {res[False][1][1]:.1f} ms; the fold "
+        f"computes {out['kv_blocks_fold']} of {out['kv_blocks_plain']} kv "
+        f"blocks a layer, outputs bitwise equal [{smi}]")
+    del params, res
+    _free()
+    return out
+
+
+def _flash_decode(dev, smi: str) -> list:
+    """12d: ``flash_decode_shardmap`` at granite-8b's attention shape
+    against ``decode_attention``."""
+    import torch
+    from repro_torch.models.attention import (decode_attention,
+                                              flash_decode_shardmap)
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(FD_B, 1, FD_H, FD_HD, generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn(FD_B, FD_S, FD_HK, FD_HD, generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    want = decode_attention(q, k, v, FD_POS)
+    plain_ms = cuda_ms(lambda: decode_attention(q, k, v, FD_POS), 10)
+    # the least time: the caches and q read once, the output written once
+    bound_ms = 1e3 * (k.numel() + v.numel() + 2 * q.numel()) * 2 \
+        / HBM_BYTES_PER_S
+    rows = []
+    for shape, seq_axes, batch_axis in FD_MESHES:
+        mesh = _mesh_on(shape, dev)
+
+        def run():
+            return flash_decode_shardmap(q, k, v, FD_POS, mesh, seq_axes,
+                                         batch_axis)
+        got = run()
+        if not torch.equal(got, run()):
+            raise AssertionError(f"phase 12: flash decode {shape} does not "
+                                 f"repeat")
+        w = want.float().cpu().numpy()
+        diff = float((got.float() - want.float()).abs().max())
+        tol = _bf16_tol(w, 1)
+        if diff > tol:
+            raise AssertionError(f"phase 12: flash decode {shape} {diff} > "
+                                 f"{tol}")
+        row = {"mesh": list(shape), "seq_axes": list(seq_axes),
+               "batch_axis": batch_axis, "max_diff": diff, "tol": tol,
+               "ms": cuda_ms(run, 10), "decode_attention_ms": plain_ms,
+               "bound_ms": bound_ms}
+        rows.append(row)
+        log(f"  flash_decode_shardmap B={FD_B} H={FD_H} Hk={FD_HK} "
+            f"hd={FD_HD} bf16 cache S={FD_S} on {shape} (seq {seq_axes}, "
+            f"batch {batch_axis}): {row['ms']:.3f} ms, decode_attention "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms (the bf16 caches "
+            f"read once at 3.35 TB/s); max |diff| {diff:.5f}, tolerance "
+            f"{tol:.5f} [{smi}]")
+    return rows
+
+
+def _compression(dev, smi: str) -> dict:
+    """12e: error-feedback int8 compression of a gemma3-1b-shaped float32
+    gradient tree, and ``int8_psum`` on a (4, 1) mesh, each against the
+    CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed.sharding import PartitionSpec as P
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_leaves, tree_map
+    cfg = get_config(COMP_ARCH)
+    g = torch.Generator(device=dev).manual_seed(0)
+    grads = tree_map(lambda d: torch.randn(d.shape, generator=g, device=dev)
+                     * 1e-3, T.model_decls(cfg))
+    n = sum(t.numel() for _, t in tree_leaves(grads))
+    ef = C.ef_init(grads)
+    ms = []
+    for step in range(COMP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q8, scales, new = C.ef_compress(grads, ef)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if step == 0:       # the card against the CPU, from zero residuals
+            checked = []
+            for path in (("embed",), ("layers", 0)):
+                sub = [grads, q8, scales]
+                for k in path:
+                    sub = [t[k] for t in sub]
+                for (p, gl), (_, ql), (_, sl) in zip(*map(
+                        lambda t: list(tree_leaves(t)), sub)):
+                    cq, cs, _ = C._compress_leaf(gl.cpu(), torch.zeros(
+                        gl.shape))
+                    if not (torch.equal(cq, ql.cpu())
+                            and torch.equal(cs, sl.cpu())):
+                        raise AssertionError(f"phase 12: int8 codes of "
+                                             f"{path + p} card != CPU")
+                    checked.append(".".join(map(str, path + p)))
+        ef = new
+        del q8, scales
+    ratio = C.compression_ratio(grads)
+    del grads, ef, new
+    _free()
+    mesh, cpu = _mesh_on((4, 1), dev), _mesh_on((4, 1), "cpu")
+    x = torch.randn(4 * PSUM_ROWS, generator=g, device=dev)
+    got = col.join(C.int8_psum(col.split(x, P("data"), mesh), "data", mesh),
+                   P(), mesh)
+    xc = x.cpu()
+    want = col.join(C.int8_psum(col.split(xc, P("data"), cpu), "data", cpu),
+                    P(), cpu)
+    exact = col.join(col.psum(col.split(xc, P("data"), cpu), "data", cpu),
+                     P(), cpu)
+    scale = float(xc.abs().max()) / 127.0
+    err = float((want - exact).abs().max())
+    if not torch.equal(got.cpu(), want) or err > 4 * scale / 2:
+        raise AssertionError(f"phase 12: int8_psum card == CPU "
+                             f"{torch.equal(got.cpu(), want)}, error {err} "
+                             f"against {4 * scale / 2}")
+    out = {"arch": COMP_ARCH, "values": n, "leaves_checked": checked,
+           "ef_compress_ms": ms, "compression_ratio": ratio,
+           "int8_psum_rows": PSUM_ROWS, "int8_psum_max_err": err,
+           "int8_psum_bound": 4 * scale / 2}
+    log(f"  ef_compress over a {COMP_ARCH}-shaped float32 tree ({n} "
+        f"values): {', '.join(f'{m:.1f}' for m in ms)} ms a step; codes and "
+        f"scales card == CPU bitwise for {len(checked)} leaves (embed, "
+        f"layer 0); compression_ratio {ratio:.6f}; int8_psum over (4, 1), "
+        f"{PSUM_ROWS} values a shard: card == CPU bitwise, max error "
+        f"{err:.3e} <= n * scale / 2 = {4 * scale / 2:.3e} [{smi}]")
+    return out
+
+
+def phase_lm_sharded(dev, smi: str) -> dict:
+    """Phase 12 (see the module docstring): the sharded LM paths."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    out, walls = {}, {}
+    for name, run in (("moe", _sharded_moe), ("sd", _sharded_sd),
+                      ("fold", _folded), ("flash_decode", _flash_decode),
+                      ("compression", _compression)):
+        t0 = time.perf_counter()
+        out[name] = run(dev, smi)
+        walls[name] = time.perf_counter() - t0
+        _free()
+    stray = {k: v for k, v in LAUNCHES.items() if v}
+    if stray:
+        raise AssertionError(f"phase 12: the sharded paths launched port "
+                             f"kernels {stray}")
+    log("  phase 12 launched none of the port's eight kernels (counts set "
+        "to 0 before the phase, read after)")
+    out["part_wall_s"] = walls
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    log(f"  phase 12 wall {out['phase_wall_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f") [{smi}]")
+    return out
+
+
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
     the window kernels and the megakernel with the sparse bitmaps the main
@@ -3860,6 +4395,13 @@ def main() -> int:
     log("phase 11: LM training on the card (gemma3-1b at full width, the "
         "launcher on every smoke config, card vs CPU, learning)")
     lm_train = phase_lm_train(dev, smi)
+    _free()
+
+    log("phase 12: the sharded LM paths on meshes of repeated cuda:0 "
+        "(olmoe-1b-7b expert-parallel MoE, recurrentgemma-2b row-sharded "
+        "sigma-delta decode, granite-8b folded causal attention, flash-decode"
+        " combine, int8 gradient compression)")
+    lm_sharded = phase_lm_sharded(dev, smi)
 
     # a kernel of no serving path reports its count summed over every
     # lowering's run (phase 4 holds it at 0); the per-step scatters add the
@@ -3878,7 +4420,7 @@ def main() -> int:
                "trace": main_path["trace"], "streaming": streaming,
                "training": training, "event_path": event_path,
                "mesh": mesh, "lm_serve": lm_serve, "lm_archs": lm_archs,
-               "lm_train": lm_train,
+               "lm_train": lm_train, "lm_sharded": lm_sharded,
                "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -3887,7 +4429,7 @@ def main() -> int:
     log(json.dumps({k: v for k, v in summary.items()
                     if k not in ("trace", "streaming", "training",
                                  "event_path", "mesh", "lm_serve",
-                                 "lm_archs", "lm_train")}))
+                                 "lm_archs", "lm_train", "lm_sharded")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

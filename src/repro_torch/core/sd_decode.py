@@ -14,9 +14,14 @@ of the RG-LRU (recurrentgemma) stack:
     smaller ``cap`` trades accuracy for bytes.
 
 State per matvec: ``x_ref (B, d_in) f32`` and ``y_ref (B, d_out) f32``,
-one set per RG-LRU layer, riding in the decode cache per slot row.  The
-reference's per-row-shard variant for a device mesh is not ported
-(ROADMAP Queue A).
+one set per RG-LRU layer, riding in the decode cache per slot row.
+
+Under a mesh with a "data" axis that divides ``d_in`` (installed with
+``distributed.sharding.set_mesh_rules``), :func:`sd_matvec` and
+:func:`sd_matvec_pair` take the reference's row-sharded form: each data
+shard selects events among its own rows of ``w`` (SNE's per-cluster event
+FIFO), and two sums (``psum``) over "data" combine the partial outputs and the
+``x_ref`` updates.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import PartitionSpec as P
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.models.layers import ParamDecl, activation, gelu
 from repro_torch.models.recurrent import rglru_step
 
@@ -61,6 +69,9 @@ def sd_matvec(w: torch.Tensor, x: torch.Tensor, x_ref: torch.Tensor,
 
     w: (d_in, d_out); x: (B, d_in); x_ref/y_ref: f32 references.
     Returns (y (B, d_out) in x.dtype, new x_ref, new y_ref)."""
+    mesh = _row_mesh(w)
+    if mesh is not None:
+        return _sd_matvec_sharded(w, x, x_ref, y_ref, cap, mesh)
     idx, dx, x_ref = _events(x, x_ref, cap)
     y = _apply_events(w, idx, dx, y_ref)
     return y.to(x.dtype), x_ref, y
@@ -71,10 +82,59 @@ def sd_matvec_pair(w1: torch.Tensor, w2: torch.Tensor, x: torch.Tensor,
                    y2_ref: torch.Tensor, cap: int):
     """Shared-input event set driving two weight reads (w_in/w_gate,
     ffn gate/up). Returns (y1, y2, x_ref', y1_ref', y2_ref')."""
+    mesh = _row_mesh(w1)
+    if mesh is not None:
+        y1, xr, y1r = _sd_matvec_sharded(w1, x, x_ref, y1_ref, cap, mesh)
+        y2, _, y2r = _sd_matvec_sharded(w2, x, x_ref, y2_ref, cap, mesh)
+        return y1, y2, xr, y1r, y2r
     idx, dx, xr = _events(x, x_ref, cap)
     y1r = _apply_events(w1, idx, dx, y1_ref)
     y2r = _apply_events(w2, idx, dx, y2_ref)
     return y1r.to(x.dtype), y2r.to(x.dtype), xr, y1r, y2r
+
+
+def _row_mesh(w: torch.Tensor):
+    """The installed mesh where its "data" axis divides ``w``'s rows, else
+    None."""
+    mesh = current_mesh()
+    if mesh is not None and "data" in mesh.shape \
+            and w.shape[0] % mesh.shape["data"] == 0:
+        return mesh
+    return None
+
+
+def _sd_matvec_sharded(w, x, x_ref, y_ref, cap, mesh):
+    """Per-row-shard event selection: data shard ``i`` owns rows ``[i *
+    rows, (i + 1) * rows)`` of ``w`` and sends the ``cap_local`` largest
+    deltas among them (at least 4, at most its rows); the columns of ``w``
+    and ``y_ref`` shard over "model" where it divides ``d_out``."""
+    B, d_in = x.shape
+    n_data = mesh.shape["data"]
+    rows = d_in // n_data
+    cap_local = max(4, min(rows, -(-cap // n_data)))
+    cols = "model" if w.shape[1] % mesh.shape.get("model", 1) == 0 else None
+    ws = col.split(w, P("data", cols), mesh)
+    xs = col.split(x, P(None, None), mesh)
+    xrs = col.split(x_ref, P(None, None), mesh)
+    yrs = col.split(y_ref, P(None, cols), mesh)
+    y_parts, upds = [], []
+    for sh, (w_l, xb, xr) in enumerate(zip(ws, xs, xrs)):
+        i = col.axis_index(mesh, "data", sh)
+        delta = xb.float() - xr                             # (B, d_in)
+        dloc = delta[:, i * rows:(i + 1) * rows]
+        idxl = torch.topk(dloc.abs(), cap_local, dim=1).indices
+        dxl = torch.gather(dloc, 1, idxl)
+        wg = w_l.index_select(0, idxl.reshape(-1)).reshape(B, cap_local, -1)
+        y_parts.append(torch.einsum("bc,bcd->bd", dxl, wg.float()))
+        upd = torch.zeros_like(delta)
+        upd[:, i * rows:(i + 1) * rows] = torch.zeros(
+            (B, rows), dtype=torch.float32, device=delta.device).scatter_add(
+            1, idxl, dxl)
+        upds.append(upd)
+    ys = [yr + yp for yr, yp in zip(yrs, col.psum(y_parts, "data", mesh))]
+    xr_new = [xr + u for xr, u in zip(xrs, col.psum(upds, "data", mesh))]
+    y = col.join(ys, P(None, cols), mesh)
+    return y.to(x.dtype), col.join(xr_new, P(None, None), mesh), y
 
 
 def sd_state_decls(B: int, d: int, lru: int, d_ff: int) -> Dict[str,

@@ -3,9 +3,10 @@ of ``repro.models.config``).
 
 One :class:`ModelConfig` describes any of the ten assigned architectures;
 every field of the reference's is kept, so a reference config maps over
-one to one.  The port runs every layer kind; of the execution knobs it
-refuses ``moe_impl="shardmap"`` and ``causal_fold`` (ROADMAP Queue A,
-LM substrate item 6).
+one to one.  The port runs every layer kind and every execution knob:
+``moe_impl="shardmap"`` and ``seq_shard`` under an installed mesh
+(`distributed.sharding.set_mesh_rules`), ``causal_fold`` with or without
+one.
 
 The reference groups layers into scan runs (``runs``, ``scan_groups``);
 the port keeps both because its weight converter unstacks the reference's
@@ -98,7 +99,7 @@ class ModelConfig:
     remat_policy: str = "full"
     attn_chunk_q: int = 1024
     attn_chunk_kv: int = 1024
-    causal_fold: bool = False   # folded causal schedule (not ported)
+    causal_fold: bool = False   # folded causal schedule (see attention.py)
     # --- training memory knobs ---
     grad_accum: int = 1         # microbatch accumulation steps
     grad_dtype: str = "float32"

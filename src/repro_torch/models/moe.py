@@ -21,15 +21,21 @@ expert keeps, and the port makes both as the reference does:
   address takes two adds in one launch and the sum repeats bitwise on the
   card, where ``index_add_`` uses atomics.
 
-The expert-parallel ``shard_map`` dispatch of the reference waits for the
-rest of ``distributed/`` (ROADMAP Queue A, LM substrate item 6).
+:func:`moe_apply_shardmap` is the reference's expert-parallel dispatch
+over a mesh (`distributed.mesh.Mesh`): each token shard routes its own
+tokens under a per-shard capacity, one ``all_to_all`` over "model" sends
+them to their experts' shards and one brings the results back.  It runs
+on shard lists (`distributed.collectives`), so autograd runs through it.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed import collectives as col
+from repro_torch.distributed.sharding import PartitionSpec as P
 from repro_torch.models.layers import (DeclTree, ParamDecl, ParamTree,
                                        activation, swiglu)
 
@@ -111,25 +117,120 @@ def moe_apply(p: ParamTree, x: torch.Tensor, *, n_experts: int, top_k: int,
     xf = x.reshape(T, d)
     probs, sel = route(p["router"], xf, top_k)
     gate_ec, idx_ec, valid = dispatch(sel, C)
-
-    # gather -> expert FFN -> weighted combine, expert after expert
-    dt = x.dtype
     xe = xf.index_select(0, idx_ec.reshape(-1)).reshape(E, C, d)
-    g = torch.bmm(xe, p["gate"].to(dt))
-    u = torch.bmm(xe, p["up"].to(dt))
-    ye = torch.bmm(activation(act)(g) * u, p["down"].to(dt))
-    ye = (ye * gate_ec[..., None].to(dt)).float()
-    out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
-    for e in range(E):
-        out.index_add_(0, idx_ec[e], ye[e])
-    out = out.to(dt).reshape(B, S, d)
+    ye = _experts(xe, p["gate"], p["up"], p["down"], act)
+    out = _combine(ye, gate_ec, idx_ec, T).reshape(B, S, d)
     if shared:
-        sp = p["shared"]
-        out = out + swiglu(x, sp["gate"], sp["up"], sp["down"], act)
+        out = out + _shared(p, x, act)
+    return out, _stats(probs, sel, valid)
 
-    # Switch-style aux loss and capacity-drop accounting
+
+def _experts(xe: torch.Tensor, gate: torch.Tensor, up: torch.Tensor,
+             down: torch.Tensor, act: str) -> torch.Tensor:
+    """The expert FFN batch: (E, C, d) -> (E, C, d) in xe's dtype."""
+    dt = xe.dtype
+    g = torch.bmm(xe, gate.to(dt))
+    u = torch.bmm(xe, up.to(dt))
+    return torch.bmm(activation(act)(g) * u, down.to(dt))
+
+
+def _combine(ye: torch.Tensor, gate_ec: torch.Tensor, idx_ec: torch.Tensor,
+             T: int) -> torch.Tensor:
+    """The gate-weighted expert outputs added back to their T tokens in
+    float32, expert after expert; (T, d) in ye's dtype."""
+    dt = ye.dtype
+    ye = (ye * gate_ec[..., None].to(dt)).float()
+    out = torch.zeros((T, ye.shape[-1]), dtype=torch.float32,
+                      device=ye.device)
+    for e in range(ye.shape[0]):
+        out.index_add_(0, idx_ec[e], ye[e])
+    return out.to(dt)
+
+
+def _shared(p: ParamTree, x: torch.Tensor, act: str) -> torch.Tensor:
+    sp = p["shared"]
+    return swiglu(x, sp["gate"], sp["up"], sp["down"], act)
+
+
+def _stats(probs: torch.Tensor, sel: torch.Tensor,
+           valid: torch.Tensor) -> MoeStats:
+    """Switch-style aux loss and capacity-drop accounting."""
     routed = sel > 0
-    aux = E * torch.sum(routed.float().mean(0) * probs.mean(0))
+    aux = probs.shape[1] * torch.sum(routed.float().mean(0) * probs.mean(0))
     n_routes = routed.sum().float()
     dropped = 1.0 - valid.sum() / torch.clamp(n_routes, min=1.0)
-    return out, MoeStats(aux_loss=aux, dropped_frac=dropped)
+    return MoeStats(aux_loss=aux, dropped_frac=dropped)
+
+
+def moe_apply_shardmap(p: ParamTree, x: torch.Tensor, *, n_experts: int,
+                       top_k: int, capacity_factor: float, act: str,
+                       shared: bool, mesh, model_axis: str = "model",
+                       seq_shard: bool = False
+                       ) -> Tuple[torch.Tensor, MoeStats]:
+    """Expert-parallel MoE over ``mesh``: local routing and an all-to-all
+    dispatch (the reference's ``moe_apply_shardmap``).
+
+    Tokens shard over the data axes ("pod", "data"), and over
+    ``model_axis`` too under ``seq_shard``; experts shard over
+    ``model_axis``, their d axis FSDP-split over "data" and gathered back
+    first.  Each shard routes its own ``T_local`` tokens under the
+    capacity of ``T_local``; rows for expert set ``j`` travel to model rank
+    ``j`` and back.  ``aux_loss`` and ``dropped_frac`` are the mean of the
+    shards'.  Where the experts, the batch or (under ``seq_shard``) the
+    sequence do not divide, it is ``moe_apply``.  The shared expert runs
+    outside the shards."""
+    B, S, d = x.shape
+    E, K = n_experts, top_k
+    n_model = mesh.shape[model_axis]
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    n_data = math.prod(mesh.shape[a] for a in data_axes)
+    if E % n_model or B % n_data or (seq_shard and S % n_model):
+        return moe_apply(p, x, n_experts=E, top_k=K,
+                         capacity_factor=capacity_factor, act=act,
+                         shared=shared)
+    T_local = (B // n_data) * (S // (n_model if seq_shard else 1))
+    C = _capacity(T_local, E, K, capacity_factor)
+    fs = "data" if "data" in mesh.shape else None
+    d_ax = data_axes if len(data_axes) > 1 else (
+        data_axes[0] if data_axes else None)
+    batch_spec = P(d_ax, model_axis if seq_shard else None, None)
+
+    xs = col.split(x, batch_spec, mesh)
+    router = col.split(p["router"], P(None, None), mesh)
+    gate = col.split(p["gate"], P(model_axis, fs, None), mesh)
+    up = col.split(p["up"], P(model_axis, fs, None), mesh)
+    down = col.split(p["down"], P(model_axis, None, fs), mesh)
+    if fs is not None:      # the FSDP gather of each shard's experts
+        gate = col.all_gather(gate, fs, 1, mesh)
+        up = col.all_gather(up, fs, 1, mesh)
+        down = col.all_gather(down, fs, 2, mesh)
+
+    # per shard: route, keep the top-C tokens of every expert, gather them
+    xf = [xb.reshape(-1, d) for xb in xs]
+    routed = [route(r, t, K) for r, t in zip(router, xf)]
+    kept = [dispatch(sel, C) for _, sel in routed]
+    xe = [t.index_select(0, idx.reshape(-1)).reshape(E, C, d)
+          for t, (_, idx, _) in zip(xf, kept)]
+    if n_model > 1:
+        xe = col.all_to_all(xe, model_axis, 0, 1, mesh)
+    # xe: (E / n_model, C * n_model, d), this shard's experts, every shard
+    ye = [_experts(a, g, u, w, act)
+          for a, g, u, w in zip(xe, gate, up, down)]
+    if n_model > 1:
+        ye = col.all_to_all(ye, model_axis, 1, 0, mesh)
+    outs = [_combine(y, g, idx, t.shape[0]).reshape(xb.shape)
+            for y, (g, idx, _), t, xb in zip(ye, kept, xf, xs)]
+    stats = [_stats(probs, sel, valid)
+             for (probs, sel), (_, _, valid) in zip(routed, kept)]
+    aux = [s.aux_loss for s in stats]
+    dropped = [s.dropped_frac for s in stats]
+    mean_axes = data_axes + ((model_axis,) if seq_shard else ())
+    if mean_axes:
+        aux = col.pmean(aux, mean_axes, mesh)
+        dropped = col.pmean(dropped, mean_axes, mesh)
+
+    out = col.join(outs, batch_spec, mesh)
+    if shared:
+        out = out + _shared(p, x, act)
+    return out, MoeStats(aux_loss=col.join(aux, P(), mesh),
+                         dropped_frac=col.join(dropped, P(), mesh))

@@ -23,9 +23,14 @@ overwrites the first prompt positions (``patches=``).  With
 ``cfg.sd_decode_frac > 0`` the RG-LRU layers decode through sigma-delta
 event-gated matvecs (``core/sd_decode.py``).  Int8 weight storage
 (``cfg.weight_quant``) is ``models/quant_lm.py``'s: dequantise the tree,
-then call these functions, as the reference does.  Refused (ROADMAP
-Queue A, LM substrate item 6): ``moe_impl="shardmap"`` here and
-``causal_fold`` in ``flash_attention``.
+then call these functions, as the reference does.  ``cfg.causal_fold``
+takes the folded causal schedule in every full-sequence attention
+(``forward``, ``prefill``, ``lm_loss``).  Under a mesh installed with
+``distributed.sharding.set_mesh_rules``, ``moe_impl="shardmap"`` runs the
+MoE layers through the expert-parallel ``moe_apply_shardmap`` (in
+``forward`` and ``decode_step``; without a mesh, the gather path) and the
+sigma-delta matvecs take their row-sharded form; gradients flow through
+both.
 
 Parameters and caches hold one entry per layer (``params["layers"][i]``,
 ``cache[i]``; the encoder's ``params["encoder"]["layers"][i]``), where
@@ -46,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.sd_decode import (ffn_step_sd, rglru_step_sd,
                                         sd_state_decls)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.models import config as C
 from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.config import LayerSpec, ModelConfig
@@ -55,7 +61,8 @@ from repro_torch.models.layers import (DeclTree, ParamDecl, ParamTree,
                                        init_tree, rms_norm, rope,
                                        sinusoidal_at, sinusoidal_positions,
                                        tree_map)
-from repro_torch.models.moe import MoeStats, moe_apply, moe_decls, zero_stats
+from repro_torch.models.moe import (MoeStats, moe_apply, moe_apply_shardmap,
+                                   moe_decls, zero_stats)
 from repro_torch.models.recurrent import (rglru_block, rglru_block_step,
                                           rglru_decls)
 from repro_torch.models.xlstm import (mlstm_block, mlstm_block_step,
@@ -66,15 +73,6 @@ Cache = List[Dict[str, Any]]
 
 _ATTN = (C.ATTN_GLOBAL, C.ATTN_LOCAL)
 _ENC_SPEC = LayerSpec(C.ATTN_BIDIR, C.FFN_DENSE)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port has not ported, naming the ROADMAP item."""
-    if cfg.moe_impl == "shardmap":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='shardmap' (the expert-parallel "
-            f"all-to-all dispatch) is not ported (ROADMAP Queue A, LM "
-            f"substrate item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +124,6 @@ def layer_decls(cfg: ModelConfig, spec: LayerSpec) -> DeclTree:
 
 
 def model_decls(cfg: ModelConfig) -> DeclTree:
-    check_supported(cfg)
     out: DeclTree = {
         "embed": ParamDecl((cfg.vocab_padded, cfg.d_model), scale=0.02),
         "final_norm": ParamDecl((cfg.d_model,), init="zeros"),
@@ -197,6 +194,14 @@ def _attention(p: ParamTree, cfg: ModelConfig, mixer: str, x: torch.Tensor,
 
 
 def _moe(p: ParamTree, cfg: ModelConfig, h: torch.Tensor):
+    """The MoE dispatch: the expert-parallel form under an installed mesh
+    with ``moe_impl="shardmap"``, else the gather form."""
+    mesh = current_mesh()
+    if cfg.moe_impl == "shardmap" and mesh is not None:
+        return moe_apply_shardmap(
+            p, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, act=cfg.act,
+            shared=cfg.shared_expert, mesh=mesh, seq_shard=cfg.seq_shard)
     return moe_apply(p, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
                      capacity_factor=cfg.capacity_factor, act=cfg.act,
                      shared=cfg.shared_expert)
@@ -332,7 +337,6 @@ def forward(params: ParamTree, cfg: ModelConfig, tokens: torch.Tensor,
     embeddings, which overwrite the first n token positions; a prompt
     shorter than n raises ``ValueError`` (the reference builds a sequence
     of the wrong length from it)."""
-    check_supported(cfg)
     S = tokens.shape[1]
     # F.embedding, not indexing: its backward sums a token's rows in one
     # fixed order on both devices (index_put_'s CPU accumulation does not)
@@ -454,7 +458,6 @@ def _cache_len(cfg: ModelConfig, spec: LayerSpec, S: int) -> int:
 def cache_decls(cfg: ModelConfig, B: int, S: int) -> List[DeclTree]:
     """Zero-initialised declarations of every layer's decode cache for B
     rows and S positions."""
-    check_supported(cfg)
     H, Hk, hd, dt = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.tdtype
     f32 = torch.float32
     out = []

@@ -21,11 +21,13 @@ from repro_torch.core.policies import ExecutionPolicy
 from repro_torch.core.sne_net import (default_capacities, event_apply,
                                       event_predict, init_snn, tiny_net)
 from repro_torch.data.events_ds import TINY, batch_at, sample_recording_path
+from repro_torch.distributed import Mesh
 from repro_torch.data.lm_ds import LmDatasetSpec
 from repro_torch.data.lm_ds import batch_at as lm_batch_at
 from repro_torch.data.lm_ds import stream as lm_stream
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim.schedules import constant
 from repro_torch.train.loop import init_train_state, train_loop
 from repro_torch.models.transformer import init_cache, init_model
@@ -91,6 +93,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/train/loop.py",
             "src/repro_torch/data/lm_ds.py",
             "src/repro_torch/weights.py",
+            "src/repro_torch/distributed/mesh.py",
+            "src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/distributed/compression.py",
+            "src/repro_torch/launch/mesh.py",
             "chip_smoke.py"} <= scanned
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in PORT_FILES}
@@ -125,7 +131,8 @@ def no_cuda():
                                    "launch_serve_moe", "init_train_state",
                                    "train_loop", "lm_batch_at", "lm_stream",
                                    "launch_train", "launch_train_stub",
-                                   "lm_train_state_from_numpy"])
+                                   "lm_train_state_from_numpy", "mesh",
+                                   "make_host_mesh"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
@@ -190,6 +197,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             ["--arch", "whisper-medium", "--smoke", "--steps", "1"]),
         "lm_train_state_from_numpy": lambda: lm_train_state_from_numpy(
             {}, None, lm_cfg),
+        "mesh": lambda: Mesh((2, 2)),
+        "make_host_mesh": lambda: make_host_mesh(),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -119,18 +119,30 @@ def test_registry_and_configs_match_the_reference():
 
 
 def test_unported_layer_kinds_are_refused():
-    """Only the expert-parallel MoE dispatch and the folded causal schedule
-    are left (ROADMAP Queue A, LM substrate item 6); int8 storage is no
-    longer refused."""
+    """Nothing is refused any more: the shard-map MoE config builds its
+    parameters and caches and runs (the gather path without a mesh, as in
+    the reference), ``flash_attention(fold=True)`` and ``causal_fold``
+    run (bitwise the plain schedule), and int8 storage keeps the
+    parameter count."""
     cfg = dataclasses.replace(tcfg.get_smoke("olmoe-1b-7b"),
                               moe_impl="shardmap")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        T.init_model(torch.Generator(), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        T.cache_decls(cfg, 1, 8)
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        TA.flash_attention(q, q, q, causal=True, fold=True)
+    p = T.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    assert len(T.cache_decls(cfg, 1, 8)) == cfg.n_layers
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    h, _, _ = T.forward(p, cfg, toks)
+    gather = dataclasses.replace(cfg, moe_impl="gather")
+    assert torch.equal(h, T.forward(p, gather, toks)[0])
+    q = torch.randn((1, 8, 2, 8), generator=torch.Generator().manual_seed(1))
+    assert torch.equal(TA.flash_attention(q, q, q, causal=True, chunk_q=4,
+                                          chunk_kv=4, fold=True),
+                       TA.flash_attention(q, q, q, causal=True, chunk_q=4,
+                                          chunk_kv=4))
+    granite = tcfg.get_smoke("granite-8b")        # chunk 64: Nq = 2
+    gp = T.init_model(torch.Generator().manual_seed(2), granite, "cpu")
+    toks = torch.arange(128)[None] % granite.vocab_size
+    folded = dataclasses.replace(granite, causal_fold=True)
+    assert torch.equal(T.forward(gp, folded, toks)[0],
+                       T.forward(gp, granite, toks)[0])
     int8 = dataclasses.replace(tcfg.get_smoke("granite-8b"),
                                weight_quant="int8")
     assert T.param_count(int8) == T.param_count(tcfg.get_smoke("granite-8b"))
