@@ -233,6 +233,30 @@ non-zero):
       mesh equal to the CPU's bitwise and within ``n_shards * scale / 2``
       of the float32 psum.
    Its numbers are kept under ``"lm_sharded"``.
+13. the multi-pod dry-run (``launch.dryrun``; no kernel build; the phase
+   launches none of the port's eight kernels, counts set to 0 before it
+   and read after):
+   a. every supported decode_32k and long_500k cell on both production
+      meshes (16 x 16 and 2 x 16 x 16 ``meta`` devices) and gemma3-1b
+      train_4k on the single-pod one, at full width on ``meta`` tensors:
+      every status ok and ``torch.cuda.memory_allocated()`` unchanged
+      across them; each cell's run time, FLOPs and state bytes per device
+      (against 80 GB) and wire bytes;
+   b. phase 11's cell (gemma3-1b, B = 8, S = 1024, chunk 128, remat)
+      through ``build_step_fn`` on a 1 x 1 mesh, on meta and on the card
+      (weights from ``torch.Generator("cuda")`` seeded 0): the meta FLOP
+      count equal to ``FlopCounterMode`` around one real step on the card,
+      ``state_bytes_per_device`` equal to the bytes of the parameters and
+      moments the card holds, ``_train_step_flops`` within 0.5% of the
+      count; the meta peak live bytes beside ``max_memory_allocated``;
+   c. phase 9's (recurrentgemma-2b, B = 4, cache 4096) and phase 10's
+      (olmoe-1b-7b, B = 4, cache 2048) decode cells, meta against the
+      card, FLOPs exactly equal; state bytes over 3.35 TB/s beside the
+      phases' HBM bounds;
+   d. olmoe smoke with ``moe_impl="shardmap"`` on a (2, 2) mesh, a train
+      step and a decode step: the collective rows issued on ``meta`` equal
+      those issued on repeated ``cuda:0`` with real data.
+   Its numbers are kept under ``"dryrun"``.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -3386,11 +3410,15 @@ TRAIN_REL_TOL, GRAD_TOL = 1e-5, 1e-4        # card vs CPU, float32
 def _train_step_flops(cfg, B: int, S: int) -> dict:
     """The operations one ``make_train_step`` of ``cfg`` does at (B, S),
     reckoned from the code: the layer GEMMs run forward, again under
-    remat, and backward (two GEMMs each); the unembedding GEMM forward,
-    again inside its checkpointed CE chunk, and backward; the blockwise
-    attention computes every (q, kv) block, masked or not (``Cq = Ckv =
-    S`` here), QK^T and PV, forward, again under remat, and backward
-    (twice each).  Dense attention layers and dense FFNs only."""
+    remat, and backward (two GEMMs each), except that the remat pass stops
+    before each layer's FFN down projection (non-reentrant
+    ``torch.utils.checkpoint`` stops recomputing once every tensor the
+    backward saved is back, and no backward needs that GEMM's output); the
+    unembedding GEMM forward, again inside its checkpointed CE chunk, and
+    backward; the blockwise attention computes every (q, kv) block, masked
+    or not (``Cq = Ckv = S`` here), QK^T and PV, forward, again under
+    remat, and backward (twice each).  Dense attention layers and dense
+    FFNs only.  Phase 13b holds it to the dry-run's FLOP count."""
     from repro_torch.models import config as C
     d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     per_layer = 0
@@ -3401,9 +3429,10 @@ def _train_step_flops(cfg, B: int, S: int) -> dict:
             + 3 * d * cfg.d_ff
     T_ = B * S
     layers = 2 * T_ * per_layer                  # one forward
+    down = 2 * T_ * cfg.d_ff * d * cfg.n_layers  # not recomputed
     head = 2 * T_ * d * cfg.vocab_padded
     remat = 1 if cfg.remat else 0
-    gemm = layers * (1 + remat + 2) + head * (1 + 1 + 2)
+    gemm = layers * (1 + remat + 2) - remat * down + head * (1 + 1 + 2)
     attn_fwd = cfg.n_layers * 2 * (2 * B * H * S * S * hd)
     attn = attn_fwd * (1 + remat + 2)
     return {"gemm_flop": gemm, "attention_flop": attn,
@@ -4286,6 +4315,233 @@ def phase_lm_sharded(dev, smi: str) -> dict:
     return out
 
 
+DRY_DECODE = (("recurrentgemma-2b", 4, 4096, 1.608),    # phase 9's cell
+              ("olmoe-1b-7b", 4, 2048, 4.451))         # phase 10's
+DEVICE_BYTES = 80e9                                    # H100 80GB HBM3
+
+
+def _meta_mesh():
+    from repro_torch.distributed.mesh import Mesh
+    return Mesh((1, 1), ("data", "model"), ["meta"])
+
+
+def _card_flops(fn, args) -> int:
+    """``FlopCounterMode`` around one real run of ``fn`` on the card."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        out = fn(*args)
+        del out
+    torch.cuda.synchronize()
+    return fc.get_total_flops()
+
+
+def _dryrun_cells(smi: str) -> list:
+    """13a: every supported decode_32k and long_500k cell on both
+    production meshes and gemma3-1b train_4k on the single-pod one, on
+    meta tensors: every status ok, no byte allocated on the card."""
+    import torch
+    from repro_torch.configs import ARCH_IDS, cell_supported
+    from repro_torch.launch import dryrun as D
+    before = torch.cuda.memory_allocated()
+    cells = [(a, n, mp) for a in ARCH_IDS for n in ("decode_32k", "long_500k")
+             if cell_supported(a, n)[0] for mp in (False, True)]
+    cells.append(("gemma3-1b", "train_4k", False))
+    out = []
+    for arch, name, mp in cells:
+        rec = D.run_cell(arch, name, mp, verbose=False)
+        if rec["status"] != "ok":
+            raise AssertionError(f"phase 13a: {arch} x {name}: {rec}")
+        row = {k: rec[k] for k in ("arch", "shape", "mesh", "run_s",
+                                   "flops_global", "flops_per_device",
+                                   "state_bytes_per_device",
+                                   "peak_live_bytes_global",
+                                   "bytes_global_unfused")}
+        row["wire_bytes_per_device"] = rec["collectives"]["total_wire_bytes"]
+        out.append(row)
+        log(f"  {arch} x {name} x {rec['mesh']}: run {rec['run_s']:.2f} s, "
+            f"{rec['flops_per_device']:.4e} FLOP/device, state "
+            f"{rec['state_bytes_per_device']:.4e} B/device "
+            f"({rec['state_bytes_per_device'] / DEVICE_BYTES:.2%} of 80 GB), "
+            f"wire {row['wire_bytes_per_device']:.4e} B/device")
+    after = torch.cuda.memory_allocated()
+    if after != before:
+        raise AssertionError(f"phase 13a: the meta cells allocated "
+                             f"{after - before} bytes on the card")
+    log(f"  13a: {len(out)} cells ok on meta, card memory unchanged "
+        f"({after} bytes allocated before and after) [{smi}]")
+    return out
+
+
+def _dryrun_train_cell(dev, smi: str) -> dict:
+    """13b: phase 11's cell through ``build_step_fn`` on a 1 x 1 mesh, on
+    meta and on the card: FLOPs and state bytes exactly equal."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    from repro_torch.models.layers import tree_leaves
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("phase11", TRAIN_S, TRAIN_B, "train")
+    rules = default_rules(False)
+    fn, args, _ = D.build_step_fn(cfg, shape, _meta_mesh(), rules,
+                                  loss_chunk=TRAIN_CHUNK)
+    meta = D.measure(fn, args)
+    del fn, args
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    fn, args, state = D.build_step_fn(
+        cfg, shape, Mesh((1, 1), ("data", "model"), [dev]), rules,
+        device=dev, loss_chunk=TRAIN_CHUNK,
+        gen=torch.Generator(dev).manual_seed(0))
+    params, opt, _ = args
+    held = sum(t.numel() * t.element_size() for t in
+               [x for _, x in tree_leaves(params)] + [opt.step]
+               + [x for _, x in tree_leaves(opt.mu)]
+               + [x for _, x in tree_leaves(opt.nu)])
+    state_bytes = SP.state_bytes_per_device(state)
+    card = _card_flops(fn, args)
+    peak = torch.cuda.max_memory_allocated()
+    del fn, args, params, opt
+    _free()
+    if card != meta["flops"]:
+        raise AssertionError(f"phase 13b: meta counts {meta['flops']} FLOPs,"
+                             f" the card step {card}")
+    if state_bytes != held:
+        raise AssertionError(f"phase 13b: state bytes {state_bytes} != the "
+                             f"{held} bytes the card holds")
+    formula = _train_step_flops(cfg, TRAIN_B, TRAIN_S)
+    rel = meta["flops"] / formula["total_flop"] - 1.0
+    log(f"  13b: {TRAIN_ARCH} B = {TRAIN_B}, S = {TRAIN_S}, chunk "
+        f"{TRAIN_CHUNK}: {card} FLOPs on the card == {meta['flops']} on meta "
+        f"({meta['flops_by_op']}); _train_step_flops {formula['total_flop']}"
+        f" ({rel:+.4%}); state {state_bytes:.0f} B == held; peak live "
+        f"{meta['peak_live_bytes'] / 2**30:.2f} GiB (meta) beside "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; meta run "
+        f"{meta['run_s']:.1f} s [{smi}]")
+    if abs(rel) > 0.005:
+        raise AssertionError(f"phase 13b: _train_step_flops is {rel:+.3%} "
+                             f"off the count")
+    return {"flops": card, "flops_by_op": meta["flops_by_op"],
+            "formula_flops": formula["total_flop"], "formula_rel": rel,
+            "formula_bound_ms": formula["bound_ms"],
+            "state_bytes": state_bytes, "peak_live_bytes_meta":
+            meta["peak_live_bytes"], "max_memory_allocated": peak,
+            "meta_run_s": meta["run_s"]}
+
+
+def _dryrun_decode_cells(dev, smi: str) -> list:
+    """13c: phase 9's and phase 10's decode cells, meta against the card:
+    FLOPs exactly equal; state bytes over 3.35 TB/s beside their HBM
+    bounds."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+    out = []
+    for arch, B, S, bound_ms in DRY_DECODE:
+        cfg = get_config(arch)
+        shape = ShapeSpec("decode", S, B, "decode")
+        rules = default_rules(False)
+        fn, args, state = D.build_step_fn(cfg, shape, _meta_mesh(), rules)
+        meta = D.measure(fn, args)
+        del fn, args
+        fn, args, _ = D.build_step_fn(
+            cfg, shape, Mesh((1, 1), ("data", "model"), [dev]), rules,
+            device=dev, gen=torch.Generator(dev).manual_seed(0))
+        card = _card_flops(fn, args)
+        del fn, args
+        _free()
+        if card != meta["flops"]:
+            raise AssertionError(f"phase 13c: {arch}: meta counts "
+                                 f"{meta['flops']} FLOPs, the card {card}")
+        sb = SP.state_bytes_per_device(state)
+        ms = 1e3 * sb / HBM_BYTES_PER_S
+        log(f"  13c: {arch} B = {B}, cache {S}: {card} FLOPs card == meta; "
+            f"state {sb:.0f} B / 3.35 TB/s = {ms:.3f} ms beside the "
+            f"{bound_ms} ms HBM bound of its phase [{smi}]")
+        out.append({"arch": arch, "B": B, "S": S, "flops": card,
+                    "state_bytes": sb, "state_ms": ms,
+                    "phase_bound_ms": bound_ms})
+    return out
+
+
+def _dryrun_issued(dev, smi: str) -> dict:
+    """13d: olmoe smoke with the shard-map MoE on a (2, 2) mesh: the
+    collectives issued on meta equal those issued on repeated cuda:0 with
+    real data."""
+    import torch
+    from repro_torch.configs import ShapeSpec, get_smoke
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.mesh import Mesh
+    from repro_torch.distributed.sharding import (clear_mesh_rules,
+                                                  default_rules,
+                                                  set_mesh_rules)
+    from repro_torch.launch import dryrun as D
+    cfg = dataclasses.replace(get_smoke("olmoe-1b-7b"), moe_impl="shardmap")
+    rules = default_rules(False)
+    out = {}
+    for kind in ("train", "decode"):
+        got = {}
+        for device in ("meta", dev):
+            mesh = Mesh((2, 2), ("data", "model"), [device] * 4)
+            set_mesh_rules(mesh, rules)
+            try:
+                fn, args, _ = D.build_step_fn(
+                    cfg, ShapeSpec("s", 32, 4, kind), mesh, rules,
+                    device=device)
+                with col.counting() as rows:
+                    fn(*args)
+                torch.cuda.synchronize()
+            finally:
+                clear_mesh_rules()
+            got[str(device)] = rows
+        meta, card = got["meta"], got[str(dev)]
+        if meta != card or not meta:
+            raise AssertionError(f"phase 13d: {kind}: issued rows differ "
+                                 f"(meta {len(meta)}, card {len(card)})")
+        summ = D.summarize_collectives(meta)
+        log(f"  13d: olmoe smoke shard-map {kind} on (2, 2): {len(meta)} "
+            f"issued rows equal on meta and on cuda:0 x 4; wire "
+            f"{summ['total_wire_bytes']:.0f} B/device [{smi}]")
+        out[kind] = {"rows": len(meta), "wire_bytes":
+                     summ["total_wire_bytes"]}
+    return out
+
+
+def phase_dryrun(dev, smi: str) -> dict:
+    """Phase 13 (see the module docstring): the dry-run."""
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    out, walls = {}, {}
+    for name, run in (("cells", lambda: _dryrun_cells(smi)),
+                      ("train_cell", lambda: _dryrun_train_cell(dev, smi)),
+                      ("decode_cells", lambda: _dryrun_decode_cells(dev, smi)),
+                      ("issued", lambda: _dryrun_issued(dev, smi))):
+        t0 = time.perf_counter()
+        out[name] = run()
+        walls[name] = time.perf_counter() - t0
+        _free()
+    stray = {k: v for k, v in LAUNCHES.items() if v}
+    if stray:
+        raise AssertionError(f"phase 13: the dry-run launched port kernels "
+                             f"{stray}")
+    log("  phase 13 launched none of the port's eight kernels (counts set "
+        "to 0 before the phase, read after)")
+    out["part_wall_s"] = walls
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    log(f"  phase 13 wall {out['phase_wall_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f") [{smi}]")
+    return out
+
+
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
     the window kernels and the megakernel with the sparse bitmaps the main
@@ -4402,6 +4658,12 @@ def main() -> int:
         "sigma-delta decode, granite-8b folded causal attention, flash-decode"
         " combine, int8 gradient compression)")
     lm_sharded = phase_lm_sharded(dev, smi)
+    _free()
+
+    log("phase 13: the multi-pod dry-run on meta tensors (every decode and "
+        "long-context cell on both production meshes, gemma3-1b train_4k), "
+        "meta against the card")
+    dryrun = phase_dryrun(dev, smi)
 
     # a kernel of no serving path reports its count summed over every
     # lowering's run (phase 4 holds it at 0); the per-step scatters add the
@@ -4421,7 +4683,7 @@ def main() -> int:
                "training": training, "event_path": event_path,
                "mesh": mesh, "lm_serve": lm_serve, "lm_archs": lm_archs,
                "lm_train": lm_train, "lm_sharded": lm_sharded,
-               "build_s": secs,
+               "dryrun": dryrun, "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4429,7 +4691,8 @@ def main() -> int:
     log(json.dumps({k: v for k, v in summary.items()
                     if k not in ("trace", "streaming", "training",
                                  "event_path", "mesh", "lm_serve",
-                                 "lm_archs", "lm_train", "lm_sharded")}))
+                                 "lm_archs", "lm_train", "lm_sharded",
+                                 "dryrun")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

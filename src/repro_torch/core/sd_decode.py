@@ -139,14 +139,20 @@ def _sd_matvec_sharded(w, x, x_ref, y_ref, cap, mesh):
 
 def sd_state_decls(B: int, d: int, lru: int, d_ff: int) -> Dict[str,
                                                                 ParamDecl]:
-    """One RG-LRU layer's sigma-delta references (zeros, float32)."""
-    def ref(dim):
-        return ParamDecl((B, dim), init="zeros", dtype=torch.float32)
+    """One RG-LRU layer's sigma-delta references (zeros, float32).  The
+    hidden-side output references are model-sharded ("act_mlp"), the
+    input references replicated (the event selection reads the whole
+    delta vector), as in the reference."""
+    def ref(dim, shard=False):
+        return ParamDecl((B, dim), ("batch", "act_mlp" if shard else None),
+                         init="zeros", dtype=torch.float32)
 
     return {
-        "x1_ref": ref(d), "yin_ref": ref(lru), "ygate_ref": ref(lru),
+        "x1_ref": ref(d), "yin_ref": ref(lru, True),
+        "ygate_ref": ref(lru, True),
         "x2_ref": ref(lru), "yout_ref": ref(d),
-        "xf_ref": ref(d), "yg_ref": ref(d_ff), "yu_ref": ref(d_ff),
+        "xf_ref": ref(d), "yg_ref": ref(d_ff, True),
+        "yu_ref": ref(d_ff, True),
         "xd_ref": ref(d_ff), "yd_ref": ref(d),
     }
 

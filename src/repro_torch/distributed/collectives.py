@@ -22,10 +22,21 @@ shard order (`distributed.mesh.Mesh`), each on its shard's device.
 
 Everything is built from slicing, ``.to(device)``, ``cat`` and adds, so
 autograd runs through it.
+
+While :func:`counting` is open, each of the five collectives adds one row
+to the list it yields: the reference's HLO kind (``"all-reduce"`` for
+``psum`` / ``pmax`` / ``pmean``, ``"all-gather"``, ``"all-to-all"``), a
+count of 1, the payload bytes per device (one shard's result), the wire
+bytes per device by the reference's ring model (all-reduce
+``2 (g - 1) / g`` of the payload, all-gather and all-to-all
+``(g - 1) / g``, for a group of ``g`` shards), and the calling function as
+``op_name``.  Outside it they do exactly what they do without it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import sys
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
@@ -40,6 +51,40 @@ def _axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+_ROWS: Dict[str, list] = {"rows": None}
+
+# the reference's per-kind ring model (``repro.launch.dryrun``): wire bytes
+# per device over payload bytes per device, for a group of g
+WIRE = {"all-reduce": lambda g: 2.0 * (g - 1) / g,
+        "all-gather": lambda g: (g - 1) / g,
+        "all-to-all": lambda g: (g - 1) / g}
+
+
+@contextlib.contextmanager
+def counting():
+    """Yield a list that receives one row for every collective issued
+    while the block is open (nested blocks each see their own)."""
+    prev, rows = _ROWS["rows"], []
+    _ROWS["rows"] = rows
+    try:
+        yield rows
+    finally:
+        _ROWS["rows"] = prev
+
+
+def _record(kind: str, result: torch.Tensor, axes: Axes,
+            mesh: Mesh) -> None:
+    rows = _ROWS["rows"]
+    if rows is None:
+        return
+    g = math.prod(mesh.shape[a] for a in _axes(axes))
+    nbytes = result.numel() * result.element_size()
+    rows.append({"kind": kind, "count": 1, "bytes": nbytes,
+                 "wire_bytes": nbytes * WIRE[kind](g), "group": g,
+                 "op_name": sys._getframe(2).f_code.co_name,
+                 "source": "issued"})
 
 
 def axis_index(mesh: Mesh, axes: Axes, shard: int) -> int:
@@ -134,19 +179,22 @@ def _reduce(parts: Parts, axes: Axes, mesh: Mesh,
 
 def psum(parts: Parts, axes: Axes, mesh: Mesh) -> Parts:
     """The sum over ``axes`` (``jax.lax.psum``)."""
+    _record("all-reduce", parts[0], axes, mesh)
     return _reduce(parts, axes, mesh, torch.add)
 
 
 def pmax(parts: Parts, axes: Axes, mesh: Mesh) -> Parts:
     """The elementwise maximum over ``axes`` (``jax.lax.pmax``)."""
+    _record("all-reduce", parts[0], axes, mesh)
     return _reduce(parts, axes, mesh, torch.maximum)
 
 
 def pmean(parts: Parts, axes: Axes, mesh: Mesh) -> Parts:
     """The mean over ``axes``: the sum over the group's size
     (``jax.lax.pmean``)."""
+    _record("all-reduce", parts[0], axes, mesh)
     n = math.prod(mesh.shape[a] for a in _axes(axes))
-    return [p / n for p in psum(parts, axes, mesh)]
+    return [p / n for p in _reduce(parts, axes, mesh, torch.add)]
 
 
 def all_gather(parts: Parts, axis: Axes, dim: int, mesh: Mesh) -> Parts:
@@ -161,6 +209,7 @@ def all_gather(parts: Parts, axis: Axes, dim: int, mesh: Mesh) -> Parts:
             if dev not in made:
                 made[dev] = torch.cat([parts[m].to(dev) for m in g], dim)
             out[s] = made[dev]
+    _record("all-gather", out[0], axis, mesh)
     return out
 
 
@@ -182,4 +231,5 @@ def all_to_all(parts: Parts, axis: Axes, split_dim: int, concat_dim: int,
         for i, s in enumerate(g):
             out[s] = torch.cat([chunks[m][i].to(mesh.devices[s]) for m in g],
                                concat_dim)
+    _record("all-to-all", out[0], axis, mesh)
     return out

@@ -10,7 +10,9 @@ collectives take and return lists of per-shard tensors, in shard order.
 Shard ``s`` sits at the row-major coordinate ``s`` of the grid and on
 ``mesh.devices[s]``.  A device may repeat: ``["cuda:0"] * 4`` or
 ``["cpu"] * 4`` runs four shards on one device, which is how the port's
-sharded paths run where there is one card (or none).
+sharded paths run where there is one card (or none); ``["meta"] * 256``
+is the dry-run's production mesh (`launch.mesh.make_production_mesh`),
+which holds no storage.
 """
 from __future__ import annotations
 

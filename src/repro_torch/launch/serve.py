@@ -1,10 +1,15 @@
 """LM serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
-Runs the slot-batched continuous-batching engine on the arch's reduced
-(smoke) config with seeded random weights and synthetic prompts, and
-prints one summary line.  ``--arch`` takes every arch the engine serves:
-all but the encoder and frontend configs (whisper-medium, internvl2-26b).  ``--device`` picks the device (default: the
-CUDA device; ``--device cpu`` runs the plain PyTorch path on the CPU).
+Host mode runs the slot-batched continuous-batching engine on the arch's
+reduced (smoke) config with seeded random weights and synthetic prompts,
+and prints one summary line.  ``--arch`` takes every arch the engine
+serves: all but the encoder and frontend configs (whisper-medium,
+internvl2-26b).  ``--device`` picks the device (default: the CUDA device;
+``--device cpu`` runs the plain PyTorch path on the CPU).
+``--production-lower`` runs the full config's ``--shape`` cell of the
+dry-run instead (``launch.dryrun.run_cell`` on the single-pod production
+mesh, meta tensors, no allocation) and saves its record under
+``experiments/dryrun``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,16 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--production-lower", action="store_true")
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=("decode_32k", "long_500k", "prefill_32k"))
     args = ap.parse_args(argv)
+
+    if args.production_lower:
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell(args.arch, args.shape, multi_pod=False)
+        dryrun.save_record(rec, "experiments/dryrun")
+        return
 
     from repro_torch.configs import get_smoke
     from repro_torch.device import resolve_device

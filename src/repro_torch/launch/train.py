@@ -8,8 +8,10 @@ preemption handling (``train/loop.py``).  The stub inputs of the audio
 and vision configs (``frames`` / ``patches``) are drawn once from a
 ``torch.Generator`` seeded ``--seed + 1`` and fed with every batch.
 ``--device`` picks the device (default: the CUDA device; ``--device cpu``
-runs on the CPU).  ``--production-lower`` (the reference's multi-pod
-dry-run) is not ported: it raises ``NotImplementedError``.
+runs on the CPU).  ``--production-lower`` runs the arch's ``train_4k``
+cell of the dry-run (``launch.dryrun.run_cell`` on the single-pod
+production mesh, meta tensors, no allocation) and saves its record under
+``experiments/dryrun``, as the reference's does.
 """
 from __future__ import annotations
 
@@ -39,10 +41,10 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     if args.production_lower:
-        raise NotImplementedError(
-            "--production-lower lowers the step for a multi-pod JAX mesh "
-            "(the dry-run), which is not ported (ROADMAP Queue A, LM "
-            "substrate item 7)")
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell(args.arch, "train_4k", multi_pod=False)
+        dryrun.save_record(rec, "experiments/dryrun")
+        return rec
 
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.data.lm_ds import LmDatasetSpec, stream

@@ -23,10 +23,10 @@ def frontend_decls(cfg: ModelConfig) -> Optional[DeclTree]:
             raise ValueError(f"{cfg.name}: the audio frontend feeds an "
                              f"encoder, and the config has none")
         return {"proj": ParamDecl((cfg.encoder.d_input, cfg.d_model),
-                                  dtype=cfg.tdtype)}
+                                  (None, "p_embed"), dtype=cfg.tdtype)}
     if cfg.frontend == "vision":
         return {"proj": ParamDecl((cfg.d_model, cfg.d_model),
-                                  dtype=cfg.tdtype)}
+                                  ("p_embed", None), dtype=cfg.tdtype)}
     return None
 
 

@@ -1,12 +1,17 @@
 """Declarative parameters and elementary layers (norm, RoPE, activations,
 the gated FFN): the counterpart of ``repro.models.layers``.
 
-Parameters are declared once (:class:`ParamDecl`: shape, initializer,
-dtype) and the declaration tree is consumed twice: by :func:`init_tree`
-(random values from a ``torch.Generator``) and by the weight converter
+Parameters are declared once (:class:`ParamDecl`: shape, logical
+sharding axes, initializer, dtype) and the declaration tree is consumed
+three times: by :func:`init_tree` (random values from a
+``torch.Generator``), by the weight converter
 (``repro_torch.weights.lm_params_from_numpy``), which checks the
-reference's arrays against the same shapes.  The reference's logical
-sharding axes have no counterpart: the port places a model on one device.
+reference's arrays against the same shapes, and by the dry-run
+(``repro_torch.launch.specs``), which resolves each leaf's axes to a
+partition spec on the production mesh.  The axes are the reference's, less
+its leading ``"p_layers"`` entry: the port keeps one entry per layer
+where the reference stacks a scan group, and ``"p_layers"`` maps to no
+mesh axis.
 
 A declaration tree is a nested ``dict`` whose values are dicts, lists of
 trees (one entry per layer) or :class:`ParamDecl` leaves.
@@ -23,9 +28,15 @@ import torch.nn.functional as F
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]     # logical sharding axes, len == ndim
     init: str = "normal"                # normal | zeros | ones
     scale: Optional[float] = None       # stddev; None -> 1/sqrt(fan_in)
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"ParamDecl: shape {self.shape} and axes "
+                             f"{self.axes} differ in length")
 
     def fan_in(self) -> int:
         # convention: last axis is fan-out, the rest multiply to fan-in
@@ -172,9 +183,9 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 
 def ffn_decls(d_model: int, d_ff: int) -> DeclTree:
     return {
-        "gate": ParamDecl((d_model, d_ff)),
-        "up": ParamDecl((d_model, d_ff)),
-        "down": ParamDecl((d_ff, d_model)),
+        "gate": ParamDecl((d_model, d_ff), ("p_embed", "p_mlp")),
+        "up": ParamDecl((d_model, d_ff), ("p_embed", "p_mlp")),
+        "down": ParamDecl((d_ff, d_model), ("p_mlp", "p_embed")),
     }
 
 

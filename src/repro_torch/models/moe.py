@@ -53,16 +53,20 @@ def zero_stats(device=None) -> MoeStats:
 def moe_decls(d_model: int, n_experts: int, expert_ff: int,
               shared: bool, d_ff: int) -> DeclTree:
     d: DeclTree = {
-        "router": ParamDecl((d_model, n_experts), scale=d_model ** -0.5),
-        "gate": ParamDecl((n_experts, d_model, expert_ff)),
-        "up": ParamDecl((n_experts, d_model, expert_ff)),
-        "down": ParamDecl((n_experts, expert_ff, d_model)),
+        "router": ParamDecl((d_model, n_experts), ("p_embed", None),
+                            scale=d_model ** -0.5),
+        "gate": ParamDecl((n_experts, d_model, expert_ff),
+                          ("p_experts", "p_embed", "p_mlp")),
+        "up": ParamDecl((n_experts, d_model, expert_ff),
+                        ("p_experts", "p_embed", "p_mlp")),
+        "down": ParamDecl((n_experts, expert_ff, d_model),
+                          ("p_experts", "p_mlp", "p_embed")),
     }
     if shared:
         d["shared"] = {
-            "gate": ParamDecl((d_model, d_ff)),
-            "up": ParamDecl((d_model, d_ff)),
-            "down": ParamDecl((d_ff, d_model)),
+            "gate": ParamDecl((d_model, d_ff), ("p_embed", "p_mlp")),
+            "up": ParamDecl((d_model, d_ff), ("p_embed", "p_mlp")),
+            "down": ParamDecl((d_ff, d_model), ("p_mlp", "p_embed")),
         }
     return d
 

@@ -37,7 +37,7 @@ def _quantizable(d: ParamDecl) -> bool:
 
 def _q_decl(d: ParamDecl) -> dict:
     return {Q_KEY: dataclasses.replace(d, dtype=torch.int8),
-            S_KEY: ParamDecl((d.shape[-1],), init="ones",
+            S_KEY: ParamDecl((d.shape[-1],), (d.axes[-1],), init="ones",
                              dtype=torch.float32)}
 
 

@@ -24,16 +24,17 @@ _C = 8.0  # Griffin's fixed recurrence sharpness constant
 
 def rglru_decls(d_model: int, d_lru: int, conv_w: int) -> DeclTree:
     return {
-        "w_in": ParamDecl((d_model, d_lru)),
-        "w_gate": ParamDecl((d_model, d_lru)),
-        "conv_w": ParamDecl((conv_w, d_lru), scale=conv_w ** -0.5),
-        "conv_b": ParamDecl((d_lru,), init="zeros"),
-        "a_w": ParamDecl((d_lru,), scale=1.0),
-        "a_b": ParamDecl((d_lru,), init="zeros"),
-        "x_w": ParamDecl((d_lru,), scale=1.0),
-        "x_b": ParamDecl((d_lru,), init="zeros"),
-        "lam": ParamDecl((d_lru,), init="ones"),
-        "w_out": ParamDecl((d_lru, d_model)),
+        "w_in": ParamDecl((d_model, d_lru), ("p_embed", "p_mlp")),
+        "w_gate": ParamDecl((d_model, d_lru), ("p_embed", "p_mlp")),
+        "conv_w": ParamDecl((conv_w, d_lru), (None, "p_mlp"),
+                          scale=conv_w ** -0.5),
+        "conv_b": ParamDecl((d_lru,), ("p_mlp",), init="zeros"),
+        "a_w": ParamDecl((d_lru,), ("p_mlp",), scale=1.0),
+        "a_b": ParamDecl((d_lru,), ("p_mlp",), init="zeros"),
+        "x_w": ParamDecl((d_lru,), ("p_mlp",), scale=1.0),
+        "x_b": ParamDecl((d_lru,), ("p_mlp",), init="zeros"),
+        "lam": ParamDecl((d_lru,), ("p_mlp",), init="ones"),
+        "w_out": ParamDecl((d_lru, d_model), ("p_mlp", "p_embed")),
     }
 
 

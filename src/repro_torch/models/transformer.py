@@ -84,19 +84,23 @@ def _with_dtype(tree: DeclTree, dt: torch.dtype) -> DeclTree:
     return tree_map(lambda d: dataclasses.replace(d, dtype=dt), tree)
 
 
+def _norm_decl(d: int) -> ParamDecl:
+    return ParamDecl((d,), ("p_embed",), init="zeros")
+
+
 def attn_decls(cfg: ModelConfig) -> DeclTree:
     d, H, Hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     return {
-        "wq": ParamDecl((d, H * hd)),
-        "wk": ParamDecl((d, Hk * hd)),
-        "wv": ParamDecl((d, Hk * hd)),
-        "wo": ParamDecl((H * hd, d)),
+        "wq": ParamDecl((d, H * hd), ("p_embed", "p_heads")),
+        "wk": ParamDecl((d, Hk * hd), ("p_embed", "p_kv_heads")),
+        "wv": ParamDecl((d, Hk * hd), ("p_embed", "p_kv_heads")),
+        "wo": ParamDecl((H * hd, d), ("p_heads", "p_embed")),
     }
 
 
 def layer_decls(cfg: ModelConfig, spec: LayerSpec) -> DeclTree:
     d = cfg.d_model
-    out: DeclTree = {"norm": ParamDecl((d,), init="zeros")}
+    out: DeclTree = {"norm": _norm_decl(d)}
     if spec.mixer in _ATTN + (C.ATTN_BIDIR,):
         out["attn"] = attn_decls(cfg)
     elif spec.mixer == C.RGLRU:
@@ -108,13 +112,13 @@ def layer_decls(cfg: ModelConfig, spec: LayerSpec) -> DeclTree:
     else:
         raise ValueError(f"{cfg.name}: unknown mixer {spec.mixer!r}")
     if spec.cross_attn:
-        out["cross_norm"] = ParamDecl((d,), init="zeros")
+        out["cross_norm"] = _norm_decl(d)
         out["cross"] = attn_decls(cfg)
     if spec.ffn == C.FFN_DENSE:
-        out["ffn_norm"] = ParamDecl((d,), init="zeros")
+        out["ffn_norm"] = _norm_decl(d)
         out["ffn"] = ffn_decls(d, cfg.d_ff)
     elif spec.ffn == C.FFN_MOE:
-        out["ffn_norm"] = ParamDecl((d,), init="zeros")
+        out["ffn_norm"] = _norm_decl(d)
         out["moe"] = moe_decls(d, cfg.n_experts, cfg.expert_ff,
                                cfg.shared_expert, cfg.d_ff)
     elif spec.ffn != C.FFN_NONE:
@@ -125,17 +129,19 @@ def layer_decls(cfg: ModelConfig, spec: LayerSpec) -> DeclTree:
 
 def model_decls(cfg: ModelConfig) -> DeclTree:
     out: DeclTree = {
-        "embed": ParamDecl((cfg.vocab_padded, cfg.d_model), scale=0.02),
-        "final_norm": ParamDecl((cfg.d_model,), init="zeros"),
+        "embed": ParamDecl((cfg.vocab_padded, cfg.d_model),
+                           ("p_vocab", "p_embed"), scale=0.02),
+        "final_norm": _norm_decl(cfg.d_model),
         "layers": [layer_decls(cfg, s) for s in cfg.layers],
     }
     if not cfg.tie_embeddings:
-        out["lm_head"] = ParamDecl((cfg.d_model, cfg.vocab_padded))
+        out["lm_head"] = ParamDecl((cfg.d_model, cfg.vocab_padded),
+                                   ("p_embed", "p_vocab"))
     if cfg.encoder is not None:
         out["encoder"] = {
             "layers": [layer_decls(cfg, _ENC_SPEC)
                        for _ in range(cfg.encoder.n_layers)],
-            "final_norm": ParamDecl((cfg.d_model,), init="zeros"),
+            "final_norm": _norm_decl(cfg.d_model),
         }
     fe = frontend_decls(cfg)
     if fe is not None:
@@ -148,6 +154,11 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
     """Random parameters drawn from ``gen`` (a generator on ``device``;
     default: the CUDA device, raising without one)."""
     return init_tree(gen, model_decls(cfg), resolve_device(device))
+
+
+def decl_axes(decls: DeclTree):
+    """The tree of logical-axis tuples, aligned with the parameter tree."""
+    return tree_map(lambda d: d.axes, decls)
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -464,30 +475,41 @@ def cache_decls(cfg: ModelConfig, B: int, S: int) -> List[DeclTree]:
     for spec in cfg.layers:
         c: DeclTree = {}
         if spec.mixer in _ATTN + (C.ATTN_BIDIR,):
+            seq_ax = "kv_window" if spec.mixer == C.ATTN_LOCAL else "kv_seq"
             kv = ParamDecl((B, _cache_len(cfg, spec, S), Hk, hd),
+                           ("batch", seq_ax, "p_kv_heads", None),
                            init="zeros", dtype=dt)
             c["k"], c["v"] = kv, kv
         elif spec.mixer == C.RGLRU:
             c["rglru"] = {
-                "h": ParamDecl((B, cfg.lru_dim), init="zeros", dtype=f32),
+                "h": ParamDecl((B, cfg.lru_dim), ("batch", "act_mlp"),
+                               init="zeros", dtype=f32),
                 "conv": ParamDecl((B, cfg.conv1d_width - 1, cfg.lru_dim),
-                                  init="zeros", dtype=dt)}
+                                  ("batch", None, "act_mlp"), init="zeros",
+                                  dtype=dt)}
             if cfg.sd_decode_frac > 0:
                 c["sd"] = sd_state_decls(B, cfg.d_model, cfg.lru_dim,
                                          cfg.d_ff)
         elif spec.mixer == C.MLSTM:
             hdm = 2 * cfg.d_model // H
             c["mlstm"] = {
-                "C": ParamDecl((B, H, hdm, hdm), init="zeros", dtype=f32),
-                "n": ParamDecl((B, H, hdm), init="zeros", dtype=f32),
-                "m": ParamDecl((B, H), init="zeros", dtype=f32)}
+                "C": ParamDecl((B, H, hdm, hdm),
+                               ("batch", None, None, "act_mlp"),
+                               init="zeros", dtype=f32),
+                "n": ParamDecl((B, H, hdm), ("batch", None, "act_mlp"),
+                               init="zeros", dtype=f32),
+                "m": ParamDecl((B, H), ("batch", None), init="zeros",
+                               dtype=f32)}
         elif spec.mixer == C.SLSTM:
-            st = ParamDecl((B, H, cfg.d_model // H), init="zeros",
-                           dtype=f32)
+            # small state feeding per-step recurrent matvecs: batch-sharded
+            # only, as in the reference
+            st = ParamDecl((B, H, cfg.d_model // H), ("batch", None, None),
+                           init="zeros", dtype=f32)
             c["slstm"] = {"c": st, "n": st, "m": st, "h": st}
         if spec.cross_attn:
-            kv = ParamDecl((B, cfg.encoder.n_frames, Hk, hd), init="zeros",
-                           dtype=dt)
+            kv = ParamDecl((B, cfg.encoder.n_frames, Hk, hd),
+                           ("batch", "kv_seq", "p_kv_heads", None),
+                           init="zeros", dtype=dt)
             c["cross_k"], c["cross_v"] = kv, kv
         out.append(c)
     return out

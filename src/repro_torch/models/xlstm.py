@@ -7,8 +7,8 @@ state ``m`` plays the part of the membrane's saturation logic and the
 forget gate is a learned, input-dependent leak.
 
 The full-sequence path is the reference's per-timestep recurrence (its
-``xscan_seq``), a Python loop over the sequence with every state in
-float32; the chunkwise-parallel mLSTM form is not in the reference.
+``xscan_seq``), a Python loop over the sequence
+(`models.scan_util.seq_loop`) with every state in float32; the chunkwise-parallel mLSTM form is not in the reference.
 Projections are per-head block-diagonal, as in the xLSTM paper.
 """
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import DeclTree, ParamDecl, ParamTree
+from repro_torch.models.scan_util import seq_loop
 
 State = Tuple[torch.Tensor, ...]
 
@@ -31,15 +32,15 @@ def mlstm_decls(d_model: int, n_heads: int, proj_factor: int = 2) -> DeclTree:
     di = proj_factor * d_model
     hd = di // n_heads
     return {
-        "up": ParamDecl((d_model, 2 * di)),
-        "wq": ParamDecl((n_heads, hd, hd)),
-        "wk": ParamDecl((n_heads, hd, hd)),
-        "wv": ParamDecl((n_heads, hd, hd)),
-        "wi": ParamDecl((di, n_heads), scale=di ** -0.5),
-        "bi": ParamDecl((n_heads,), init="zeros"),
-        "wf": ParamDecl((di, n_heads), scale=di ** -0.5),
-        "bf": ParamDecl((n_heads,), init="ones"),
-        "down": ParamDecl((di, d_model)),
+        "up": ParamDecl((d_model, 2 * di), ("p_embed", "p_mlp")),
+        "wq": ParamDecl((n_heads, hd, hd), ("p_heads", None, None)),
+        "wk": ParamDecl((n_heads, hd, hd), ("p_heads", None, None)),
+        "wv": ParamDecl((n_heads, hd, hd), ("p_heads", None, None)),
+        "wi": ParamDecl((di, n_heads), ("p_mlp", None), scale=di ** -0.5),
+        "bi": ParamDecl((n_heads,), (None,), init="zeros"),
+        "wf": ParamDecl((di, n_heads), ("p_mlp", None), scale=di ** -0.5),
+        "bf": ParamDecl((n_heads,), (None,), init="ones"),
+        "down": ParamDecl((di, d_model), ("p_mlp", "p_embed")),
     }
 
 
@@ -93,12 +94,9 @@ def mlstm_block(p: ParamTree, x: torch.Tensor,
     state = (torch.zeros((B, n_heads, hd, hd), **f32),
              torch.zeros((B, n_heads, hd), **f32),
              torch.zeros((B, n_heads), **f32))
-    hs = []
-    for t in range(S):
-        state, h = _mlstm_cell(q[:, t], k[:, t], v[:, t], li[:, t],
-                               lf[:, t], state)
-        hs.append(h)
-    h = torch.stack(hs, 1).reshape(B, S, di).to(dt)
+    state, h = seq_loop(lambda t, st: _mlstm_cell(
+        q[:, t], k[:, t], v[:, t], li[:, t], lf[:, t], st), state, S)
+    h = h.reshape(B, S, di).to(dt)
     C, n, m = state
     return _mlstm_out(p, h, z), {"C": C, "n": n, "m": m}
 
@@ -122,15 +120,15 @@ def mlstm_block_step(p: ParamTree, x_t: torch.Tensor, state: Dict,
 def slstm_decls(d_model: int, n_heads: int) -> DeclTree:
     hd = d_model // n_heads
     return {
-        "wz": ParamDecl((d_model, d_model)),
-        "wi": ParamDecl((d_model, d_model)),
-        "wf": ParamDecl((d_model, d_model)),
-        "wo": ParamDecl((d_model, d_model)),
-        "rz": ParamDecl((n_heads, hd, hd)),
-        "ri": ParamDecl((n_heads, hd, hd)),
-        "rf": ParamDecl((n_heads, hd, hd)),
-        "ro": ParamDecl((n_heads, hd, hd)),
-        "down": ParamDecl((d_model, d_model)),
+        "wz": ParamDecl((d_model, d_model), ("p_embed", "p_mlp")),
+        "wi": ParamDecl((d_model, d_model), ("p_embed", "p_mlp")),
+        "wf": ParamDecl((d_model, d_model), ("p_embed", "p_mlp")),
+        "wo": ParamDecl((d_model, d_model), ("p_embed", "p_mlp")),
+        "rz": ParamDecl((n_heads, hd, hd), ("p_heads", None, None)),
+        "ri": ParamDecl((n_heads, hd, hd), ("p_heads", None, None)),
+        "rf": ParamDecl((n_heads, hd, hd), ("p_heads", None, None)),
+        "ro": ParamDecl((n_heads, hd, hd), ("p_heads", None, None)),
+        "down": ParamDecl((d_model, d_model), ("p_mlp", "p_embed")),
     }
 
 
@@ -173,12 +171,9 @@ def slstm_block(p: ParamTree, x: torch.Tensor,
     z0 = torch.zeros((B, n_heads, d // n_heads), dtype=torch.float32,
                      device=x.device)
     state = (z0, z0, z0, z0)
-    hs = []
-    for t in range(S):
-        state, h = _slstm_cell(p, zx[:, t], ix[:, t], fx[:, t], ox[:, t],
-                               state)
-        hs.append(h)
-    h = torch.stack(hs, 1).reshape(B, S, d).to(dt)
+    state, h = seq_loop(lambda t, st: _slstm_cell(
+        p, zx[:, t], ix[:, t], fx[:, t], ox[:, t], st), state, S)
+    h = h.reshape(B, S, d).to(dt)
     c, n, m, hl = state
     return h @ p["down"].to(dt), {"c": c, "n": n, "m": m, "h": hl}
 

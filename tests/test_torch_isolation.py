@@ -4,7 +4,13 @@
   ``chip_smoke.py`` finds no import of ``jax`` or of ``repro`` (the JAX
   package) — only the ``tests/test_torch_*.py`` files import both.
 * The entry points default to the CUDA device and raise on a machine
-  without one instead of carrying on on the CPU.
+  without one instead of carrying on on the CPU.  The launchers' entries
+  cover their host mode; ``--production-lower`` is the dry-run, which
+  runs on ``meta`` tensors and needs no card
+  (``tests/test_torch_dryrun.py``).
+* ``meta`` is a device only where a caller names it: ``resolve_device``
+  takes it, its default stays CUDA, and ``make_production_mesh`` builds
+  its 256 or 512 meta devices without touching a card.
 """
 import ast
 import pathlib
@@ -27,7 +33,8 @@ from repro_torch.data.lm_ds import batch_at as lm_batch_at
 from repro_torch.data.lm_ds import stream as lm_stream
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.optim.schedules import constant
 from repro_torch.train.loop import init_train_state, train_loop
 from repro_torch.models.transformer import init_cache, init_model
@@ -97,6 +104,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/distributed/collectives.py",
             "src/repro_torch/distributed/compression.py",
             "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/hlo_analysis.py",
+            "src/repro_torch/models/scan_util.py",
+            "src/repro_torch/configs/sne_dvsgesture.py",
             "chip_smoke.py"} <= scanned
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in PORT_FILES}
@@ -202,6 +214,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
+
+
+def test_meta_is_a_device_only_when_named(no_cuda):
+    assert resolve_device("meta") == torch.device("meta")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("xpu")
+
+
+def test_production_mesh_touches_no_card(no_cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("the production mesh asked for a card")
+    monkeypatch.setattr(torch.cuda, "device_count", refuse)
+    monkeypatch.setattr(torch.cuda, "is_available", refuse)
+    single, multi = (make_production_mesh(),
+                     make_production_mesh(multi_pod=True))
+    assert single.shape == {"data": 16, "model": 16} and single.size == 256
+    assert multi.shape == {"pod": 2, "data": 16, "model": 16}
+    assert set(multi.devices) == {torch.device("meta")}
+    assert len(multi.devices) == 512
 
 
 def test_the_cuda_wrappers_refuse_mixed_devices():

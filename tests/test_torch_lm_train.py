@@ -535,10 +535,26 @@ def test_launcher_trains_on_the_cpu(arch, tmp_path, capsys):
     assert "[train] first loss" in capsys.readouterr().out
 
 
-def test_launcher_production_lower_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        launch_train.main(["--arch", "gemma3-1b", "--production-lower",
-                           "--device", "cpu"])
+def test_launcher_production_lower_is_refused(tmp_path, monkeypatch):
+    # --production-lower is the dry-run's train_4k cell now (it was
+    # refused before the dry-run was ported); the cell itself is held in
+    # tests/test_torch_dryrun.py, so a stub stands in for it here
+    from repro_torch.launch import dryrun
+    calls = []
+
+    def run_cell(arch, shape_name, multi_pod, **kw):
+        calls.append((arch, shape_name, multi_pod))
+        return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+                "tag": "", "status": "ok"}
+
+    monkeypatch.setattr(dryrun, "run_cell", run_cell)
+    monkeypatch.chdir(tmp_path)
+    rec = launch_train.main(["--arch", "gemma3-1b", "--production-lower",
+                             "--device", "cpu"])
+    assert calls == [("gemma3-1b", "train_4k", False)]
+    assert rec["status"] == "ok"
+    assert (tmp_path / "experiments" / "dryrun" /
+            "gemma3-1b__train_4k__single.json").exists()
 
 
 # ---------------------------------------------------------------------------
