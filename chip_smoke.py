@@ -257,6 +257,36 @@ non-zero):
       step and a decode step: the collective rows issued on ``meta`` equal
       those issued on repeated ``cuda:0`` with real data.
    Its numbers are kept under ``"dryrun"``.
+14. the examples (``repro_torch.examples``), each through its ``main([...])``
+   in process on ``cuda:0``, launch counts set to 0 before each run and
+   read after it:
+   a. ``kernels.event_conv.ref.selfcheck_batched_bitexact`` at the Fig. 6
+      conv1 shape (8 slots, 32x32, K = 5, 2 -> 16 channels, 512 events):
+      the batched kernel == its N = 1 face slot by slot == the plain
+      version on the card, bitwise; the layer program's accounting of the
+      Fig. 6 net (``state_bytes`` equal to the engine's resident slabs on
+      the card, ``window_scratch_bytes`` per lowering within the card's
+      shared memory);
+   b. quickstart on the card and on the CPU (weights and the sample made
+      on the CPU): event path == dense path, and both equal the CPU's run,
+      bitwise;
+   c. serve_events ``--source file --weights trained`` (the bundled
+      recording, the trained tiny checkpoint) under each lowering and
+      dtype policy, synchronous and streaming, and on the mesh backend
+      with ``--devices cuda:0,cuda:0``: class counts, predictions,
+      per-layer events and both drop counts equal the golden key for key;
+      the lowering's kernels launched, launches per window as
+      ``LAUNCHES`` counts them;
+   d. train_dvs_gesture ``--scale full --qat --steps 4 --batch 8 --test-n
+      8 --save-net``: the Fig. 6 net at full width (128x128x2, T = 100);
+      every loss finite, the saved net loaded back bitwise; p50 step ms,
+      the event path's ms per inference, dense and event accuracy, their
+      agreement and the drops, as they are;
+   e. event_sparsity on the card and on the CPU: R^2 > 0.999 (the
+      example asserts it), part 1's events and SOPs and part 2's event
+      fractions equal;
+   f. serve_lm on granite smoke, greedy, 4 requests: every request done.
+   Its numbers are kept under ``"examples"``.
 
 The line before the last holds the card's ``nvidia-smi`` name and power
 limit; before it, one JSON line of per-kernel numbers; the last line is
@@ -4542,6 +4572,264 @@ def phase_dryrun(dev, smi: str) -> dict:
     return out
 
 
+EXAMPLE_TRAINED = ["--source", "file", "--weights", "trained"]
+GOLDEN_KEYS = ("class_counts", "predictions", "per_layer_events",
+               "inter_layer_dropped", "input_dropped")
+# the kernels each lowering launches (``kernels.LAUNCHES`` names)
+LOWERING_KERNELS = {
+    "per-step": ("event_conv_batched", "event_pool_batched",
+                 "event_fc_batched"),
+    "fused-window": ("event_conv_window", "event_pool_window",
+                     "event_fc_window"),
+    "fused-network": ("network_window",)}
+
+
+def _example(main, argv, want=(), what: str = ""):
+    """One example's ``main(argv)`` (its printout on stderr) with the
+    launch counts set to 0 just before and read just after, each kernel of
+    ``want`` required among them: ``(result, launches, wall s)``."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launch_counts
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: v for k, v in LAUNCHES.items() if v}
+    missing = [k for k in want if not got.get(k)]
+    if missing:
+        raise AssertionError(f"phase 14 {what}: {missing} never launched "
+                             f"({got})")
+    return out, got, wall
+
+
+def _examples_accounting(dev, smi: str) -> dict:
+    """14a: the selfcheck at the conv1 shape and the Fig. 6 accounting."""
+    import numpy as np
+    import torch
+    from repro_torch.core import layer_program as lp
+    from repro_torch.core.policies import ExecutionPolicy
+    from repro_torch.core.quant import quantize_net
+    from repro_torch.core.sne_net import dvs_gesture_net, init_snn
+    from repro_torch.kernels.event_conv.ref import selfcheck_batched_bitexact
+    from repro_torch.kernels.network_window import SMEM_BUDGET
+    t0 = time.perf_counter()
+    selfcheck_batched_bitexact(N_SLOTS, 32, 32, 16, 5, 2, 512, seed=0,
+                               device=dev)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    spec = dvs_gesture_net()
+    specs = {"f32-carrier": spec, "int8-native": quantize_net(init_snn(
+        np.random.default_rng(0), spec, device="cpu"), spec).spec}
+    out = {"selfcheck_ms": ms, "state_bytes": {}, "scratch_bytes": {}}
+    for dp in DTYPE_POLICIES:
+        progs = {f: lp.compile_program(specs[dp], policy=ExecutionPolicy(
+            dtype_policy=dp, fusion_policy=f), device=dev)
+            for f in LOWERINGS}
+        prog = progs["fused-window"]
+        held = sum(lp.padded_state(op, N_SLOTS, device=dev).nbytes
+                   for op in prog.ops)
+        if lp.state_bytes(prog, N_SLOTS) != held:
+            raise AssertionError(f"phase 14 {dp}: state_bytes "
+                                 f"{lp.state_bytes(prog, N_SLOTS)} != the "
+                                 f"{held} bytes the card holds")
+        out["state_bytes"][dp] = held
+        out["scratch_bytes"][dp] = {
+            f: lp.window_scratch_bytes(p, WINDOW, n_slots=N_SLOTS)
+            for f, p in progs.items()}
+        if max(out["scratch_bytes"][dp].values()) > SMEM_BUDGET:
+            raise AssertionError(f"phase 14 {dp}: {out['scratch_bytes']}")
+    log(f"  14a selfcheck_batched_bitexact at conv1 (8 x 32x32, K 5, 2 -> "
+        f"16, 512 events): batched == N = 1 faces == plain, bitwise, "
+        f"{ms:.1f} ms; Fig. 6 state bytes at 8 slots {out['state_bytes']}, "
+        f"shared memory per block {out['scratch_bytes']} [{smi}]")
+    return out
+
+
+def _examples_quickstart(dev, smi: str) -> dict:
+    """14b: quickstart on the card against itself and the CPU."""
+    import numpy as np
+    from repro_torch.examples import quickstart
+    card, launched, wall = _example(
+        quickstart.main, ["--device", str(dev)],
+        LOWERING_KERNELS["per-step"], "quickstart")
+    with contextlib.redirect_stdout(sys.stderr):
+        cpu = quickstart.main(["--device", "cpu"])
+    for k in ("pred_dense", "pred_event", "total_events", "total_sops"):
+        if card[k] != cpu[k]:
+            raise AssertionError(f"quickstart {k}: card {card[k]} != CPU "
+                                 f"{cpu[k]}")
+    if not np.array_equal(card["class_counts"], cpu["class_counts"]):
+        raise AssertionError("quickstart class counts: card != CPU")
+    log(f"  14b quickstart: event path == dense path == the CPU's run, "
+        f"bitwise (class {card['pred_event']}, {card['total_events']:.0f} "
+        f"events, {card['total_sops']:.0f} SOPs); {wall:.2f} s, launches "
+        f"{launched} [{smi}]")
+    return {"wall_s": wall, "launches": launched,
+            "total_events": card["total_events"]}
+
+
+def _examples_serve(dev, smi: str) -> dict:
+    """14c: serve_events on the bundled recording, every lowering, dtype
+    policy and mode, and on a mesh of repeated ``cuda:0``."""
+    import numpy as np
+    from repro_torch.examples import serve_events
+    gold = np.load(GOLDEN)
+    runs, total = [], {}
+    cells = [(f, dp, mode, []) for f in LOWERINGS for dp in DTYPE_POLICIES
+             for mode in ("sync", "streaming")]
+    cells += [("fused-window", dp, "sync",
+               ["--backend", "mesh", "--devices", f"{dev},{dev}"])
+              for dp in DTYPE_POLICIES]
+    for f, dp, mode, extra in cells:
+        what = f"serve_events {f} {dp} {mode} {' '.join(extra)}".strip()
+        out, launched, wall = _example(
+            serve_events.main,
+            ["--device", str(dev)] + EXAMPLE_TRAINED
+            + ["--fusion-policy", f, "--dtype-policy", dp, "--mode", mode]
+            + extra, LOWERING_KERNELS[f], what)
+        for k in GOLDEN_KEYS:
+            if not np.array_equal(out[k], gold[k]):
+                raise AssertionError(f"{what}: {k} differs from the golden:"
+                                     f"\n{out[k]}\nvs\n{gold[k]}")
+        windows = out["stats"]["windows"]
+        n = sum(launched.values())
+        if mode == "sync" and f == "fused-network" and not extra \
+                and n != out["stats"]["kernel_launches"]:
+            raise AssertionError(f"{what}: LAUNCHES {n} != the engine's "
+                                 f"{out['stats']['kernel_launches']}")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        runs.append({"lowering": f, "dtype_policy": dp, "mode": mode,
+                     "mesh": bool(extra), "windows": windows,
+                     "launches": launched,
+                     "launches_per_window": n / max(windows, 1),
+                     "engine_kernel_launches":
+                         out["stats"]["kernel_launches"],
+                     "wall_s": wall})
+        log(f"  14c {what}: {len(out['predictions'])} requests equal the "
+            f"golden ({', '.join(GOLDEN_KEYS)}); {windows} windows, "
+            f"{n / max(windows, 1):.2f} launches a window (LAUNCHES), "
+            f"{wall:.2f} s [{smi}]")
+    return {"runs": runs, "launches": total}
+
+
+def _examples_train(dev, smi: str) -> dict:
+    """14d: train_dvs_gesture at full width, the saved net read back."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.sne_net import dvs_gesture_net
+    from repro_torch.examples import train_dvs_gesture
+    from repro_torch.weights import load_net
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fig6.npz")
+        out, launched, wall = _example(
+            train_dvs_gesture.main,
+            ["--device", str(dev), "--scale", "full", "--qat", "--steps",
+             "4", "--batch", "8", "--test-n", "8", "--save-net", path],
+            LOWERING_KERNELS["per-step"], "train_dvs_gesture")
+        back, meta = load_net(path, dvs_gesture_net(), device=dev)
+    if not np.isfinite(out["losses"]).all() or len(out["losses"]) != 4:
+        raise AssertionError(f"train_dvs_gesture losses {out['losses']}")
+    for a, b in zip(back, out["params"]):
+        if not torch.equal(a.w, b.w):
+            raise AssertionError("train_dvs_gesture: the saved net does not "
+                                 "load back bitwise")
+    res = {"losses": [float(x) for x in out["losses"]],
+           "step_ms": [1e3 * float(x) for x in out["step_s"]],
+           "p50_step_ms": 1e3 * float(np.median(out["step_s"][1:])),
+           "event_ms": [float(x) for x in out["event_ms"]],
+           "p50_event_ms": float(np.median(out["event_ms"])),
+           "eval_acc": out["eval_acc"], "acc_dense": out["acc_dense"],
+           "acc_event": out["acc_event"], "agreement": out["agreement"],
+           "mean_events": out["mean_events"],
+           "input_dropped": int(out["input_dropped"]),
+           "layer_dropped": out["layer_dropped"], "launches": launched,
+           "wall_s": wall}
+    log(f"  14d train_dvs_gesture --scale full (Fig. 6, 128x128x2, T = "
+        f"100, B = 8, QAT): losses {[round(x, 4) for x in res['losses']]}, "
+        f"p50 step (steps 2-4) {res['p50_step_ms']:.1f} ms; event path "
+        f"{res['p50_event_ms']:.1f} ms an inference (p50 of 8); accuracy "
+        f"dense {res['acc_dense']:.3f}, event {res['acc_event']:.3f}, "
+        f"agreement {res['agreement']:.3f}; dropped: input "
+        f"{res['input_dropped']}, per layer {res['layer_dropped']}; saved "
+        f"net loaded back bitwise; {wall:.1f} s [{smi}]")
+    return res
+
+
+def _examples_sparsity(dev, smi: str) -> dict:
+    """14e: event_sparsity on the card against the CPU's run."""
+    from repro_torch.examples import event_sparsity
+    card, launched, wall = _example(
+        event_sparsity.main, ["--device", str(dev)],
+        LOWERING_KERNELS["per-step"], "event_sparsity")
+    with contextlib.redirect_stdout(sys.stderr):
+        cpu = event_sparsity.main(["--device", "cpu"])
+    for a, b in zip(card["activity"], cpu["activity"]):
+        if (a["events"], a["sops"]) != (b["events"], b["sops"]):
+            raise AssertionError(f"event_sparsity part 1: card {a} != CPU "
+                                 f"{b}")
+    for a, b in zip(card["sigma_delta"], cpu["sigma_delta"]):
+        if a["event_frac"] != b["event_frac"]:
+            raise AssertionError(f"event_sparsity part 2: card {a} != CPU "
+                                 f"{b}")
+    log(f"  14e event_sparsity: R^2 {card['r2']:.6f} (> 0.999), part 1 "
+        f"events {[r['events'] for r in card['activity']]} and SOPs equal "
+        f"the CPU's, part 2 event fractions equal; {wall:.2f} s, launches "
+        f"{launched} [{smi}]")
+    return {"r2": card["r2"], "activity": card["activity"],
+            "sigma_delta": card["sigma_delta"], "wall_s": wall,
+            "launches": launched}
+
+
+def _examples_lm(dev, smi: str) -> dict:
+    """14f: serve_lm on granite smoke, greedy, 4 requests."""
+    from repro_torch.examples import serve_lm
+    out, launched, wall = _example(
+        serve_lm.main, ["--device", str(dev), "--arch", "granite-8b",
+                        "--requests", "4", "--temperature", "0"],
+        (), "serve_lm")
+    if not all(out["done"]) or launched:
+        raise AssertionError(f"serve_lm: done {out['done']}, launches "
+                             f"{launched}")
+    log(f"  14f serve_lm granite smoke: 4 of 4 requests done, "
+        f"{out['stats']['generated']} tokens in {out['wall_s']:.2f} s, no "
+        f"port kernel [{smi}]")
+    return {"stats": out["stats"], "wall_s": out["wall_s"]}
+
+
+def phase_examples(dev, smi: str) -> dict:
+    """Phase 14 (see the module docstring): the examples."""
+    t_phase = time.perf_counter()
+    out, walls = {}, {}
+    for name, run in (("accounting", _examples_accounting),
+                      ("quickstart", _examples_quickstart),
+                      ("serve_events", _examples_serve),
+                      ("train_dvs_gesture", _examples_train),
+                      ("event_sparsity", _examples_sparsity),
+                      ("serve_lm", _examples_lm)):
+        t0 = time.perf_counter()
+        out[name] = run(dev, smi)
+        walls[name] = time.perf_counter() - t0
+        _free()
+    # the main-path launches of the examples, per kernel
+    launches = dict(out["serve_events"]["launches"])
+    for name in ("quickstart", "train_dvs_gesture", "event_sparsity"):
+        for k, v in out[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    out["part_wall_s"] = walls
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    out["card"] = smi
+    log(f"  phase 14 launches {launches}; wall {out['phase_wall_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items())
+        + f") [{smi}]")
+    return out
+
+
 def _kernel_entry(name, mine, launches):
     """One kernel's line of the JSON: the main path's configuration (f32;
     the window kernels and the megakernel with the sparse bitmaps the main
@@ -4664,14 +4952,21 @@ def main() -> int:
         "long-context cell on both production meshes, gemma3-1b train_4k), "
         "meta against the card")
     dryrun = phase_dryrun(dev, smi)
+    _free()
+
+    log("phase 14: the examples (quickstart, serve_events on the bundled "
+        "recording under every lowering and mode, train_dvs_gesture at full "
+        "width, event_sparsity, serve_lm)")
+    examples = phase_examples(dev, smi)
 
     # a kernel of no serving path reports its count summed over every
     # lowering's run (phase 4 holds it at 0); the per-step scatters add the
     # event path's launches to the per-step lowering's, and every serving
-    # kernel the mesh runs' launches
+    # kernel the mesh runs' launches and the examples' (phase 14)
     launches = {k: (main_path["launches"][PATH_OF[k]][k] if PATH_OF[k]
                     else sum(main_path["launches"][f][k] for f in LOWERINGS))
                 + event_path["launches"].get(k, 0) + mesh["launches"][k]
+                + examples["launches"].get(k, 0)
                 for k in REPLACES}
     kernels = [_kernel_entry(name, [r for r in rows if r["kernel"] == name],
                              launches) for name in REPLACES]
@@ -4683,7 +4978,7 @@ def main() -> int:
                "training": training, "event_path": event_path,
                "mesh": mesh, "lm_serve": lm_serve, "lm_archs": lm_archs,
                "lm_train": lm_train, "lm_sharded": lm_sharded,
-               "dryrun": dryrun, "build_s": secs,
+               "dryrun": dryrun, "examples": examples, "build_s": secs,
                "total_s": time.perf_counter() - t_start, "card": smi}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4692,7 +4987,7 @@ def main() -> int:
                     if k not in ("trace", "streaming", "training",
                                  "event_path", "mesh", "lm_serve",
                                  "lm_archs", "lm_train", "lm_sharded",
-                                 "dryrun")}))
+                                 "dryrun", "examples")}))
     log(json.dumps({"kernels": [{k: v for k, v in kk.items()
                                  if k != "per_shape"} for kk in kernels]}))
     log(smi)

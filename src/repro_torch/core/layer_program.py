@@ -52,14 +52,16 @@ from repro_torch.core.policies import (DTYPE_POLICIES, F32_CARRIER,
                                        PER_STEP, ExecutionPolicy)
 from repro_torch.core.quant import INT8_MAX, INT8_MIN, fake_quant_weights
 from repro_torch.device import resolve_device
-from repro_torch.kernels.event_conv.ops import (event_conv,
+from repro_torch.kernels.event_conv.ops import (conv_plan, conv_smem,
+                                                event_conv,
                                                 event_conv_batched,
                                                 event_conv_window)
-from repro_torch.kernels.event_fc.ops import (event_fc, event_fc_batched,
+from repro_torch.kernels.event_fc.ops import (FC_SMEM, event_fc,
+                                              event_fc_batched,
                                               event_fc_window)
 from repro_torch.kernels.event_pool.ops import (event_pool,
                                                 event_pool_batched,
-                                                event_pool_window)
+                                                event_pool_window, pool_smem)
 from repro_torch.kernels.network_window import (CLUSTER, SMEM_BUDGET,
                                                 NetLayer, network_window,
                                                 smem_layout)
@@ -212,6 +214,15 @@ def validate_policy_layer(lspec: EConvSpec, index: int,
                 f"{val} — lower the net with core.quant.quantize_net")
 
 
+def validate_policy_spec(spec: "SNNSpec", dtype_policy: str) -> None:
+    """Whole-network face of :func:`validate_policy_layer`."""
+    if dtype_policy not in DTYPE_POLICIES:
+        raise ValueError(f"unknown dtype policy {dtype_policy!r} "
+                         f"(expected one of {DTYPE_POLICIES})")
+    for i, lspec in enumerate(spec.layers):
+        validate_policy_layer(lspec, i, dtype_policy)
+
+
 def layer_op(lspec: EConvSpec, index: int = 0,
              step_capacity: Optional[int] = None,
              dtype_policy: str = F32_CARRIER, device="cpu") -> LayerOp:
@@ -331,6 +342,28 @@ def scatter_events_batched(op: LayerOp, params: EConvParams,
                                   out_dtype=v_out)
     return event_fc_batched(vp, w, xyc, gate, in_shape=spec.in_shape,
                             out_dtype=v_out)
+
+
+def scatter_launch_bytes(op: LayerOp, n_slots: int, n_events: int) -> int:
+    """Bytes one slot-batched scatter launch moves: the int32 event
+    triples and the gates of ``n_slots`` x ``n_events`` events, the shared
+    weights, the membrane slab in and the accumulator slab out, each at
+    the dtype :func:`scatter_dtypes` gives the launch (the reference's
+    count, to the byte)."""
+    v_in, v_out, w_dt, g_dt = scatter_dtypes(op)
+    spec = op.spec
+    Hp, Wp, Co = _slab_shape(op)
+    slab = n_slots * Hp * Wp * Co
+    if spec.kind == "conv":
+        w_elems = spec.kernel ** 2 * spec.in_shape[2] * spec.out_channels
+    elif spec.kind == "pool":
+        w_elems = spec.in_shape[2]
+    else:
+        H, W, Ci = spec.in_shape
+        w_elems = H * W * Ci * spec.out_channels
+    return (n_slots * n_events * (3 * 4 + g_dt.itemsize)
+            + w_elems * w_dt.itemsize
+            + slab * (v_in.itemsize + v_out.itemsize))
 
 
 def scatter_event(op: LayerOp, params: EConvParams, vp: torch.Tensor,
@@ -656,6 +689,52 @@ def effective_fusion(program: LayerProgram) -> str:
         return program.fusion_policy
     return (FUSED_NETWORK if network_window_plan(program).smem_bytes
             <= SMEM_BUDGET else FUSED_WINDOW)
+
+
+def state_bytes(program: LayerProgram, n_slots: int) -> int:
+    """Bytes of the membrane slabs the serving engine keeps resident for
+    ``n_slots`` slots (:func:`padded_state` at :func:`state_dtype`)."""
+    return n_slots * sum(int(np.prod(_slab_shape(op)))
+                         * state_dtype(op).itemsize for op in program.ops)
+
+
+def _block_smem(op: LayerOp, n_slots: int, window: bool) -> int:
+    """Shared memory of one block of ``op``'s scatter (``window``: its
+    window kernel) launched on ``n_slots`` rows, as the wrapper sizes it."""
+    spec = op.spec
+    if spec.kind == "conv":
+        Hp, Wp, Co = _slab_shape(op)
+        K, Ci = spec.kernel, spec.in_shape[2]
+        rows, co_blk = conv_plan(n_slots, Hp, Wp, Co, K, Ci, window=window)
+        return conv_smem(rows, Wp, co_blk, K, Ci, window=window)
+    if spec.kind == "pool":
+        return pool_smem(int(np.prod(spec.out_shape)), window=window)
+    return FC_SMEM
+
+
+def window_scratch_bytes(program: LayerProgram, n_timesteps: int,
+                         co_blk: int = 128, *, n_slots: int = 8) -> int:
+    """Peak shared memory of one thread block among a window step's
+    launches, under the lowering :func:`effective_fusion` picks.
+
+    The reference's figure of the same name counts a TPU core's VMEM
+    scratch; this one counts, on this card, the shared memory (static
+    and dynamic) of one block: the widest block of any per-step or
+    fused-window launch of any layer on 1 to ``n_slots`` slot rows, sized
+    as the wrappers size it (`kernels.event_conv.ops.conv_plan` and
+    ``conv_smem``, `kernels.event_pool.ops.pool_smem`,
+    `kernels.event_fc.ops.FC_SMEM`), or one CTA of the fused-network
+    megakernel (:func:`network_window_plan`).  It never exceeds the
+    card's 232,448-byte opt-in budget.  ``n_timesteps`` and ``co_blk``
+    change nothing here: no block holds a timestep axis, and the conv
+    plan picks its own channel block.
+    """
+    fusion = effective_fusion(program)
+    if fusion == FUSED_NETWORK:
+        return network_window_plan(program).smem_bytes
+    window = fusion == FUSED_WINDOW
+    return max(_block_smem(op, n, window) for op in program.ops
+               for n in range(1, n_slots + 1))
 
 
 @functools.lru_cache(maxsize=64)

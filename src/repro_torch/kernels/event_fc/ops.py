@@ -27,6 +27,12 @@ WINDOW_NAME = "event_fc_window"
 TARGET_BLOCKS = 132      # the H100's SMs: one block each
 FC_THREADS = 256         # fc_walk.cuh kThreads: at most a column a thread
 SEGMENT = 32             # columns of one 128-byte f32 row segment
+PER_LANE = 4             # fc_walk.cuh kPerLane: events a lane filters
+BUF_WORDS = 4096         # fc_walk.cuh kBufWords: words of one row buffer
+# Shared memory of one block of either fc kernel, all of it static: the
+# kept events of a stage (int2 each), the two row buffers and the warp
+# partials (event_fc.cu, event_fc_window.cu)
+FC_SMEM = 8 * PER_LANE * FC_THREADS + 4 * 2 * BUF_WORDS + 4 * 32
 
 
 def fc_column_block(N: int, Dout: int) -> int:

@@ -26,6 +26,24 @@ MAX_BLOCKS_PER_SLOT = 8
 MAX_OWNED_PER_THREAD = 64
 
 
+# pool_walk.cuh: events a stage holds, and the per-warp partials
+STAGE = 2048
+WARPS = THREADS // 32
+MAX_TILES = 16           # lif_common.cuh kMaxTiles: the window's hot bits
+
+
+def pool_smem(n_sites: int, *, window: bool) -> int:
+    """Shared memory of one block of the pool kernels (``window``: the
+    window kernel's), static and dynamic: ``pool_walk.cuh``'s
+    ``smem_bytes`` (two raw stages, the kept list, the warp partials and
+    the block's owned membranes, at :func:`pool_blocks_per_slot` blocks a
+    slot), plus the window kernel's static tile bits."""
+    n_thr = pool_blocks_per_slot(n_sites) * THREADS
+    owned = -(-n_sites // n_thr)
+    smem = (2 * 4 * STAGE + 2 * STAGE + WARPS) * 4 + owned * THREADS * 4
+    return smem + (4 * MAX_TILES if window else 0)
+
+
 def pool_blocks_per_slot(n_sites: int) -> int:
     """Blocks sharing one slot's sites: a power of two, about one site per
     thread, at most ``MAX_BLOCKS_PER_SLOT`` unless the owned membranes

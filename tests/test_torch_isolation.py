@@ -4,7 +4,8 @@
   ``chip_smoke.py`` finds no import of ``jax`` or of ``repro`` (the JAX
   package) — only the ``tests/test_torch_*.py`` files import both.
 * The entry points default to the CUDA device and raise on a machine
-  without one instead of carrying on on the CPU.  The launchers' entries
+  without one instead of carrying on on the CPU; so does every example's
+  ``main`` given no ``--device``.  The launchers' entries
   cover their host mode; ``--production-lower`` is the dry-run, which
   runs on ``meta`` tensors and needs no card
   (``tests/test_torch_dryrun.py``).
@@ -28,6 +29,8 @@ from repro_torch.core.sne_net import (default_capacities, event_apply,
                                       event_predict, init_snn, tiny_net)
 from repro_torch.data.events_ds import TINY, batch_at, sample_recording_path
 from repro_torch.distributed import Mesh
+from repro_torch.examples import (event_sparsity, quickstart, serve_events,
+                                  serve_lm, train_dvs_gesture)
 from repro_torch.data.lm_ds import LmDatasetSpec
 from repro_torch.data.lm_ds import batch_at as lm_batch_at
 from repro_torch.data.lm_ds import stream as lm_stream
@@ -109,6 +112,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "src/repro_torch/launch/hlo_analysis.py",
             "src/repro_torch/models/scan_util.py",
             "src/repro_torch/configs/sne_dvsgesture.py",
+            "src/repro_torch/examples/quickstart.py",
+            "src/repro_torch/examples/event_sparsity.py",
+            "src/repro_torch/examples/train_dvs_gesture.py",
+            "src/repro_torch/examples/serve_events.py",
+            "src/repro_torch/examples/serve_lm.py",
             "chip_smoke.py"} <= scanned
     offenders = {str(p.relative_to(ROOT)): sorted(
         _imported_roots(p) & {"jax", "jaxlib", "repro"}) for p in PORT_FILES}
@@ -144,7 +152,12 @@ def no_cuda():
                                    "train_loop", "lm_batch_at", "lm_stream",
                                    "launch_train", "launch_train_stub",
                                    "lm_train_state_from_numpy", "mesh",
-                                   "make_host_mesh"])
+                                   "make_host_mesh", "example_quickstart",
+                                   "example_event_sparsity",
+                                   "example_train_dvs_gesture",
+                                   "example_serve_events",
+                                   "example_serve_events_mesh",
+                                   "example_serve_lm"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
     spec = tiny_net()
     params = init_snn(np.random.default_rng(0), spec, device="cpu")
@@ -211,6 +224,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda, entry):
             {}, None, lm_cfg),
         "mesh": lambda: Mesh((2, 2)),
         "make_host_mesh": lambda: make_host_mesh(),
+        # the examples, called with no --device
+        "example_quickstart": lambda: quickstart.main([]),
+        "example_event_sparsity": lambda: event_sparsity.main([]),
+        "example_train_dvs_gesture": lambda: train_dvs_gesture.main(
+            ["--steps", "1", "--test-n", "1"]),
+        "example_serve_events": lambda: serve_events.main(
+            ["--source", "file", "--weights", "trained"]),
+        "example_serve_events_mesh": lambda: serve_events.main(
+            ["--backend", "mesh"]),
+        "example_serve_lm": lambda: serve_lm.main(["--requests", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -185,3 +185,120 @@ def test_window_step_matches_jax(dtype_policy, fusion, tile_sparsity,
         for a, b in zip(t_states + (t_cc, counts, drops),
                         s_states + (s_cc, s_counts, s_drops)):
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the layer program's byte accounting
+# ---------------------------------------------------------------------------
+
+ACCOUNTING_NETS = {
+    "tiny_net": (tiny_net, jtiny),
+    "fig6_16x16": (lambda: dvs_gesture_net(n_timesteps=8, height=16,
+                                           width=16),
+                   lambda: jdvs(n_timesteps=8, height=16, width=16))}
+
+
+def _both_specs(name, dtype_policy):
+    """The port's spec and the reference's, the int4 lowering's integer
+    LIF plan in both under int8-native."""
+    spec, jspec = (f() for f in ACCOUNTING_NETS[name])
+    if dtype_policy == "int8-native":
+        spec = quantize_net(init_snn(np.random.default_rng(0), spec,
+                                     device="cpu"), spec).spec
+        jspec = dataclasses.replace(jspec, layers=tuple(
+            dataclasses.replace(jl, lif=JLif(**dataclasses.asdict(l.lif)))
+            for jl, l in zip(jspec.layers, spec.layers)))
+    return spec, jspec
+
+
+@pytest.mark.parametrize("dtype_policy", ["f32-carrier", "int8-native"])
+@pytest.mark.parametrize("name", list(ACCOUNTING_NETS))
+def test_launch_and_state_bytes_equal_the_reference(name, dtype_policy):
+    # exact, to the byte: the same formula over the same dtypes
+    spec, jspec = _both_specs(name, dtype_policy)
+    pol = ExecutionPolicy(dtype_policy=dtype_policy)
+    prog = lp.compile_program(spec, policy=pol, device="cpu")
+    jprog = jlp.compile_program(jspec, policy=JPolicy(**dataclasses.asdict(
+        pol)))
+    for op, jop in zip(prog.ops, jprog.ops):
+        for n_slots, n_events in ((1, 8), (4, 128), (8, 1000)):
+            assert lp.scatter_launch_bytes(op, n_slots, n_events) == \
+                jlp.scatter_launch_bytes(jop, n_slots, n_events), \
+                (op.index, n_slots, n_events)
+    for n_slots in (1, 2, 8):
+        assert lp.state_bytes(prog, n_slots) == \
+            jlp.state_bytes(jprog, n_slots)
+        # the engine's resident slabs are exactly that many bytes
+        assert lp.state_bytes(prog, n_slots) == sum(
+            lp.padded_state(op, n_slots=n_slots).nbytes for op in prog.ops)
+
+
+@pytest.mark.parametrize("name", list(ACCOUNTING_NETS))
+def test_validate_policy_spec_raises_where_the_reference_does(name):
+    spec, jspec = _both_specs(name, "f32-carrier")
+    qspec, jqspec = _both_specs(name, "int8-native")
+    def bent(sp, **kw):
+        # layer 1's LIF changed: a clip past int8, or a fractional threshold
+        lif = dataclasses.replace(sp.layers[1].lif, **kw)
+        return dataclasses.replace(sp, layers=sp.layers[:1] + (
+            dataclasses.replace(sp.layers[1], lif=lif),) + sp.layers[2:])
+    cases = [(spec, jspec, "f32-carrier"), (qspec, jqspec, "f32-carrier"),
+             (qspec, jqspec, "int8-native"), (spec, jspec, "int8-native"),
+             (spec, jspec, "int4")]
+    for kw in ({"state_clip": 200.0}, {"threshold": 2.5}):
+        cases.append((bent(qspec, **kw), bent(jqspec, **kw), "int8-native"))
+    raised = []
+    for s, js, dp in cases:
+        try:
+            jlp.validate_policy_spec(js, dp)
+            want = None
+        except ValueError as e:
+            want = str(e)
+        if want is None:
+            lp.validate_policy_spec(s, dp)
+        else:
+            with pytest.raises(ValueError) as got:
+                lp.validate_policy_spec(s, dp)
+            assert str(got.value) == want
+        raised.append(want is not None)
+    assert raised == [False, False, False, True, True, True, True]
+
+
+@pytest.mark.parametrize("dtype_policy", ["f32-carrier", "int8-native"])
+@pytest.mark.parametrize("name", list(ACCOUNTING_NETS))
+def test_window_scratch_bytes_are_the_wrappers_block_sizes(name,
+                                                           dtype_policy):
+    from repro_torch.kernels.event_conv.ops import conv_plan, conv_smem
+    from repro_torch.kernels.event_fc.ops import FC_SMEM
+    from repro_torch.kernels.event_pool.ops import pool_smem
+    from repro_torch.kernels.network_window import SMEM_BUDGET
+    spec, _ = _both_specs(name, dtype_policy)
+    got = {}
+    for fusion in ("per-step", "fused-window", "fused-network"):
+        prog = lp.compile_program(spec, device="cpu", policy=ExecutionPolicy(
+            dtype_policy=dtype_policy, fusion_policy=fusion))
+        window = fusion == "fused-window"
+        sizes = []
+        for op in prog.ops:
+            s = op.spec
+            for n in range(1, 5):
+                if s.kind == "conv":
+                    Hp, Wp = (d + 2 * op.halo for d in s.out_shape[:2])
+                    rows, cb = conv_plan(n, Hp, Wp, s.out_channels, s.kernel,
+                                         s.in_shape[2], window=window)
+                    sizes.append(conv_smem(rows, Wp, cb, s.kernel,
+                                           s.in_shape[2], window=window))
+                elif s.kind == "pool":
+                    sizes.append(pool_smem(int(np.prod(s.out_shape)),
+                                           window=window))
+                else:
+                    sizes.append(FC_SMEM)
+        want = (lp.network_window_plan(prog).smem_bytes
+                if fusion == "fused-network" else max(sizes))
+        got[fusion] = lp.window_scratch_bytes(prog, 4, n_slots=4)
+        assert got[fusion] == want
+        # n_timesteps and co_blk change nothing on this card
+        assert lp.window_scratch_bytes(prog, 100, co_blk=8, n_slots=4) == want
+        assert 0 < want <= SMEM_BUDGET
+    # the window kernels add their tile bits to the per-step blocks
+    assert got["fused-window"] > got["per-step"]
